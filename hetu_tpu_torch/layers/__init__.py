@@ -1,0 +1,4 @@
+from .base import BaseLayer, fresh_name
+from .common import Linear, LayerNorm, Embedding
+from .attention import MultiHeadAttention
+from .transformer import TransformerLayer, TransformerFFN

@@ -1,0 +1,23 @@
+"""Layer library base (port of ``hetu_tpu/layers/base.py``).
+
+Layers are callables that build op subgraphs; parameters are VariableOps
+created at layer construction.
+"""
+
+from __future__ import annotations
+
+from ..graph.node import _naming_stack
+
+
+def fresh_name(prefix):
+    # counters live in the innermost `name_scope`, so a model instance's
+    # default layer names don't depend on process history
+    counters = _naming_stack()[-1]["layers"]
+    c = counters.get(prefix, 0)
+    counters[prefix] = c + 1
+    return f"{prefix}{c}" if c else prefix
+
+
+class BaseLayer:
+    def __call__(self, *args, **kwargs):
+        raise NotImplementedError

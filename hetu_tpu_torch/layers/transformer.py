@@ -1,0 +1,61 @@
+"""Transformer blocks (port of ``hetu_tpu/layers/transformer.py``)."""
+
+from __future__ import annotations
+
+from .base import BaseLayer, fresh_name
+from .common import Linear, LayerNorm
+from .attention import MultiHeadAttention
+from ..ops import gelu_op, dropout_op
+
+
+class TransformerFFN(BaseLayer):
+    def __init__(self, hidden_size, intermediate_size, activation=gelu_op,
+                 dropout_rate=0.0, name=None):
+        name = fresh_name(name or "ffn")
+        self.dense1 = Linear(hidden_size, intermediate_size,
+                             name=f"{name}_in")
+        self.dense2 = Linear(intermediate_size, hidden_size,
+                             name=f"{name}_out")
+        self.activation = activation
+        self.dropout_rate = dropout_rate
+
+    def __call__(self, x):
+        h = self.activation(self.dense1(x))
+        h = self.dense2(h)
+        if self.dropout_rate > 0:
+            h = dropout_op(h, keep_prob=1.0 - self.dropout_rate)
+        return h
+
+
+class TransformerLayer(BaseLayer):
+    """Post-LN (BERT-style) or pre-LN (GPT-style) transformer block on
+    [B, S, H] nodes."""
+
+    def __init__(self, hidden_size, num_heads, intermediate_size,
+                 seq_len=None, dropout_rate=0.0, attn_dropout_rate=0.0,
+                 causal=False, pre_norm=False, activation=gelu_op,
+                 ffn_layer=None, name=None):
+        name = fresh_name(name or "layer")
+        self.attn = MultiHeadAttention(hidden_size, num_heads,
+                                       sequence_length=seq_len,
+                                       dropout_rate=attn_dropout_rate,
+                                       causal_mask=causal,
+                                       name=f"{name}_attn")
+        self.ffn = ffn_layer or TransformerFFN(
+            hidden_size, intermediate_size, activation=activation,
+            dropout_rate=dropout_rate, name=f"{name}_ffn")
+        self.ln1 = LayerNorm(hidden_size, name=f"{name}_ln1")
+        self.ln2 = LayerNorm(hidden_size, name=f"{name}_ln2")
+        self.pre_norm = pre_norm
+
+    def __call__(self, x, attention_mask=None, seq_len=None):
+        if self.pre_norm:
+            a_in = self.ln1(x)
+            a = self.attn(a_in, a_in, a_in, attention_mask=attention_mask,
+                          seq_len=seq_len)
+            x = x + a
+            return x + self.ffn(self.ln2(x))
+        a = self.attn(x, x, x, attention_mask=attention_mask,
+                      seq_len=seq_len)
+        x = self.ln1(x + a)
+        return self.ln2(x + self.ffn(x))

@@ -1,0 +1,248 @@
+"""BERT (port of ``hetu_tpu/models/bert.py``): embeddings, encoder stack,
+pooler, and the MLM + NSP pretraining heads, built as graph nodes.
+
+Variable names and layouts match the JAX package, so its params carry
+across by name (weights.py).  The input contract is the same:
+input_ids / token_type_ids / attention_mask of shape [B, S], with the
+attention mask turned into an additive [B, 1, 1, S] bias.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..graph.node import Op, VariableOp, scoped_init
+from .. import initializers as init
+from ..layers import Linear, LayerNorm, Embedding, TransformerLayer, fresh_name
+from ..ops import (array_reshape_op, dropout_op, gelu_op, tanh_op, matmul_op,
+                   broadcastto_op, softmax_cross_entropy_sparse_op,
+                   reduce_mean_op)
+
+
+class BertConfig:
+    def __init__(self, vocab_size=30522, hidden_size=768,
+                 num_hidden_layers=12, num_attention_heads=12,
+                 intermediate_size=3072, max_position_embeddings=512,
+                 type_vocab_size=2, hidden_dropout_prob=0.1,
+                 attention_probs_dropout_prob=0.1, seq_len=128,
+                 mlm_bucket_frac=0.25):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_hidden_layers = num_hidden_layers
+        self.num_attention_heads = num_attention_heads
+        self.intermediate_size = intermediate_size
+        self.max_position_embeddings = max_position_embeddings
+        self.type_vocab_size = type_vocab_size
+        self.hidden_dropout_prob = hidden_dropout_prob
+        self.attention_probs_dropout_prob = attention_probs_dropout_prob
+        self.seq_len = seq_len
+        # Fraction of tokens the MLM head's masked-position bucket holds
+        # (0.25 covers the standard 15% recipe); None = dense head.
+        self.mlm_bucket_frac = mlm_bucket_frac
+
+
+class AttentionMaskOp(Op):
+    """[B, S] 0/1 mask -> additive [B, 1, 1, S] f32 bias."""
+
+    def _compute(self, input_vals, ctx):
+        (m,) = input_vals
+        return ((1.0 - m.float()) * -10000.0)[:, None, None, :]
+
+
+class PositionIdsOp(Op):
+    """The first S position-embedding rows, [1, S, H], broadcast over the
+    batch of x."""
+
+    def __init__(self, table, x, seq_len):
+        super().__init__(table, x, name="position_embed")
+        self.seq_len = seq_len
+
+    def _compute(self, input_vals, ctx):
+        table, _ = input_vals
+        return table[None, :self.seq_len, :]
+
+
+class BertEmbeddings:
+    def __init__(self, config, name="bert_embeddings"):
+        c = config
+        self.word = Embedding(c.vocab_size, c.hidden_size,
+                              initializer=init.normal(0.0, 0.02),
+                              name=f"{name}_word")
+        self.position = VariableOp(f"{name}_position",
+                                   (c.max_position_embeddings, c.hidden_size),
+                                   init.normal(0.0, 0.02))
+        self.token_type = Embedding(c.type_vocab_size, c.hidden_size,
+                                    initializer=init.normal(0.0, 0.02),
+                                    name=f"{name}_tok_type")
+        self.ln = LayerNorm(c.hidden_size, name=f"{name}_ln")
+        self.dropout_keep = 1.0 - c.hidden_dropout_prob
+        self.config = config
+
+    def __call__(self, input_ids, token_type_ids):
+        x = self.word(input_ids) + self.token_type(token_type_ids)
+        x = x + PositionIdsOp(self.position, x, self.config.seq_len)
+        x = self.ln(x)
+        if self.dropout_keep < 1.0:
+            x = dropout_op(x, keep_prob=self.dropout_keep)
+        return x
+
+
+class BertModel:
+    @scoped_init
+    def __init__(self, config, name="bert"):
+        c = config
+        self.config = c
+        self.embeddings = BertEmbeddings(c, name=f"{name}_embeddings")
+        self.encoder = [
+            TransformerLayer(c.hidden_size, c.num_attention_heads,
+                             c.intermediate_size, seq_len=c.seq_len,
+                             dropout_rate=c.hidden_dropout_prob,
+                             attn_dropout_rate=c.attention_probs_dropout_prob,
+                             causal=False, pre_norm=False,
+                             name=f"{name}_layer{i}")
+            for i in range(c.num_hidden_layers)]
+        self.pooler = Linear(c.hidden_size, c.hidden_size,
+                             name=f"{name}_pooler")
+
+    def __call__(self, input_ids, token_type_ids, attention_mask=None):
+        mask = AttentionMaskOp(attention_mask) \
+            if attention_mask is not None else None
+        x = self.embeddings(input_ids, token_type_ids)
+        for layer in self.encoder:
+            x = layer(x, attention_mask=mask, seq_len=self.config.seq_len)
+        # pooled = tanh(W @ x[:, 0])
+        pooled = tanh_op(self.pooler(FirstTokenOp(x)))
+        return x, pooled
+
+
+class FirstTokenOp(Op):
+    """[B, S, H] -> [B, H] (CLS token for the pooler)."""
+
+    def _compute(self, input_vals, ctx):
+        (x,) = input_vals
+        return x[:, 0, :]
+
+
+class BertForPreTraining:
+    """MLM + NSP heads."""
+
+    @scoped_init
+    def __init__(self, config, name="bert"):
+        c = config
+        self.config = c
+        self.bert = BertModel(config, name=name)
+        self.mlm_transform = Linear(c.hidden_size, c.hidden_size,
+                                    name=f"{name}_mlm_transform")
+        self.mlm_ln = LayerNorm(c.hidden_size, name=f"{name}_mlm_ln")
+        # decoder shares the word-embedding table (tied weights)
+        self.mlm_bias = VariableOp(f"{name}_mlm_bias", (c.vocab_size,),
+                                   init.zeros())
+        self.nsp = Linear(c.hidden_size, 2, name=f"{name}_nsp")
+
+    def __call__(self, input_ids, token_type_ids, attention_mask):
+        seq, pooled = self.bert(input_ids, token_type_ids, attention_mask)
+        h = self.mlm_ln(gelu_op(self.mlm_transform(
+            array_reshape_op(seq, output_shape=(-1,
+                                                self.config.hidden_size)))))
+        logits = matmul_op(h, self.bert.embeddings.word.weight, trans_B=True)
+        logits = logits + broadcastto_op(self.mlm_bias, logits)
+        nsp_logits = self.nsp(pooled)
+        return logits, nsp_logits
+
+    def loss(self, input_ids, token_type_ids, attention_mask, mlm_labels,
+             nsp_labels):
+        """mlm_labels: [B*S] with -1 for unmasked; nsp_labels: [B].
+
+        The MLM head runs only on a static bucket of masked positions
+        (``config.mlm_bucket_frac`` of the tokens), as in the JAX package.
+        """
+        c = self.config
+        seq, pooled = self.bert(input_ids, token_type_ids, attention_mask)
+        flat = array_reshape_op(seq, output_shape=(-1, c.hidden_size))
+        frac = c.mlm_bucket_frac
+        n_tokens = None
+        shape = getattr(mlm_labels, "shape", None)
+        if frac is not None and shape is not None and shape[0] is not None:
+            n_tokens = int(shape[0])
+        if n_tokens is not None:
+            bucket = min(n_tokens, -(-int(n_tokens * frac) // 128) * 128)
+            h_in = MaskedSelectOp(flat, mlm_labels, bucket=bucket)
+            labels_in = MaskedSelectLabelsOp(mlm_labels, bucket=bucket)
+        else:
+            h_in, labels_in = flat, mlm_labels
+        h = self.mlm_ln(gelu_op(self.mlm_transform(h_in)))
+        logits = matmul_op(h, self.bert.embeddings.word.weight, trans_B=True)
+        logits = logits + broadcastto_op(self.mlm_bias, logits)
+        ce = softmax_cross_entropy_sparse_op(logits, labels_in,
+                                             ignored_index=-1)
+        mlm_loss = MaskedMeanOp(ce, labels_in)
+        nsp_loss = reduce_mean_op(softmax_cross_entropy_sparse_op(
+            self.nsp(pooled), nsp_labels))
+        return mlm_loss + nsp_loss
+
+
+def _bucket_positions(labels, bucket):
+    """(positions, n_valid): the first ``bucket`` positions with label >= 0
+    in order, fill slots at index 0.  A stable argsort of ``label < 0``
+    puts the masked positions first; unlike ``torch.nonzero`` it needs no
+    host sync, and it gives what ``jnp.nonzero(size=bucket,
+    fill_value=0)`` gives in the JAX package."""
+    valid = labels >= 0
+    n_valid = valid.sum()
+    order = torch.sort((~valid).to(torch.int8), stable=True).indices[:bucket]
+    live = torch.arange(order.shape[0], device=labels.device) < n_valid
+    return torch.where(live, order, torch.zeros_like(order)), live, n_valid
+
+
+class MaskedSelectOp(Op):
+    """Rows of ``x`` at the first ``bucket`` positions where label >= 0
+    (fill rows repeat index 0; their loss weight is zeroed downstream)."""
+
+    def __init__(self, x, labels, bucket, name=None):
+        super().__init__(x, labels, name=name)
+        self.bucket = int(bucket)
+
+    def _compute(self, input_vals, ctx):
+        x, labels = input_vals
+        pos, _, _ = _bucket_positions(labels.reshape(-1), self.bucket)
+        return x.index_select(0, pos)
+
+
+class MaskedSelectLabelsOp(Op):
+    """Labels gathered like MaskedSelectOp's rows, with fill slots forced
+    to -1 (ignored).  Masked positions beyond the bucket are dropped from
+    the loss and counted in an int32 variable that the executor polls and
+    warns on."""
+
+    def __init__(self, labels, bucket, name=None):
+        name = name or fresh_name("masked_labels")
+        # int32 counter: exact accumulation, and ints bypass compute_dtype
+        self.overflow_total = VariableOp(f"{name}_overflow_total", (),
+                                         init.zeros(), trainable=False,
+                                         dtype=np.int32)
+        self.overflow_total.monitor = (
+            lambda v: None if v <= 0 else
+            f"hetu_tpu_torch: MLM bucket overflow — {int(v)} masked "
+            "positions (cumulative) exceeded the bucket and were excluded "
+            "from the loss.  Raise BertConfig.mlm_bucket_frac or set it to "
+            "None.")
+        super().__init__(labels, self.overflow_total, name=name)
+        self.bucket = int(bucket)
+
+    def _compute(self, input_vals, ctx):
+        labels, total = input_vals
+        labels = labels.reshape(-1)
+        pos, live, n_valid = _bucket_positions(labels, self.bucket)
+        over = (n_valid - self.bucket).clamp_min(0).to(torch.int32)
+        ctx.record_update(self.overflow_total, total + over)
+        return torch.where(live, labels[pos], -1)
+
+
+class MaskedMeanOp(Op):
+    """Mean of per-token losses over positions with label >= 0."""
+
+    def _compute(self, input_vals, ctx):
+        ce, labels = input_vals
+        valid = (labels.reshape(-1) >= 0).to(ce.dtype)
+        return (ce * valid).sum() / valid.sum().clamp_min(1.0)
