@@ -6,20 +6,35 @@
 Phases, each fatal on failure (exit 1, no result lines):
 
 1. Card and build: the card's name and power limit, and the build of every
-   kernel of the path from the sources in this checkout (nvcc for the CUDA
-   flash-attention forward, Triton's compiler for the softmax-CE forward).
+   kernel of the paths from the sources in this checkout: one nvcc per CUDA
+   source (flash-attention forward with dropout; dQ and dK/dV backward),
+   all started together, then Triton's compiler for the softmax-CE forward
+   and backward.
 2. Kernels against their plain PyTorch versions on the card, on the same
-   inputs: at the main path's shapes and at ragged, causal and fully-masked
+   inputs: the dropout keep bits bitwise; the flash forward (with and
+   without dropout), dQ, dK/dV and the CE forward and backward at the main
+   paths' shapes and at ragged, causal, fully-masked, wide-head and f32
    ones.  Each check prints its max |error| beside its stated tolerance.
-3. Main path: BERT-base (vocab 30522, hidden 768, 12 layers, 12 heads,
-   FFN 3072, seq 512, MLM bucket 0.25 -> 8192 rows) evaluated through
-   ``Executor({"validate": [loss]}, compute_dtype=bfloat16)`` at batch 64
-   with random weights from ``--seed``.  The launch counters are zeroed just
-   before the timed steps and read just after: 12 flash launches and 1 CE
-   launch per step.  Then each kernel is timed at the path's shapes beside
-   its bound, its plain version and one PyTorch library call (a yardstick
-   only; the port never calls it), and the same weights are evaluated at
-   f32 on the card and on the CPU (batch 2, 2 layers) and compared.
+3. Main paths, each driven with the five launch counters set to 0 just
+   before its timed steps and read just after:
+   a. BERT-base (vocab 30522, hidden 768, 12 layers, 12 heads, FFN 3072,
+      seq 512, MLM bucket 0.25 -> 8192 rows) evaluated through
+      ``Executor({"validate": [loss]}, compute_dtype=bfloat16)`` at batch
+      64 with random weights from ``--seed``: 12 flash forward launches and
+      1 CE forward launch per step, no backward launch.
+   b. The BERT-base training step at the same shapes with hidden and
+      attention dropout 0.1: ``AdamWOptimizer(1e-4, weight_decay=0.01)
+      .minimize(loss)`` and ``Executor({"train": [loss, train_op]},
+      compute_dtype=bfloat16)`` over f32 master params, 3 warm-up and
+      ``--steps`` timed steps: per step 12 flash forward, 12 dQ, 12 dK/dV,
+      1 CE forward and 1 CE backward launches, every loss finite.
+   Each path's step is broken down by kernel class under torch.profiler.
+   Then each kernel is timed at the paths' shapes beside its bound, its
+   plain version and one PyTorch library call (a yardstick only; the port
+   never calls it), and one f32 training step of BERT (batch 2, 2 layers,
+   full widths, dropout off) runs from the same params on the card
+   (kernels) and on the CPU (plain versions): loss, every gradient and
+   every updated param are compared.
 4. Result: a {"kernels": [...]} JSON line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
@@ -29,6 +44,7 @@ Exits non-zero, printing no result, when no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import math
 import subprocess
@@ -44,6 +60,7 @@ import torch.nn.functional as F
 # tensor-core (or f32 vector) rate of their type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+CUDA_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu")
 
 failures = []
 
@@ -66,6 +83,12 @@ def check(name, got, want, atol, why, rtol=0.0):
     return err
 
 
+def require(name, ok):
+    log(f"check {name}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(name)
+
+
 def time_ms(fn, iters, warmup=2):
     """Mean device time of ``fn`` in ms over ``iters`` back-to-back calls
     (CUDA events), after ``warmup`` calls."""
@@ -82,6 +105,15 @@ def time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def bound(n_bytes, ops, dtype):
+    """(ms, "bytes" or "operations"): the least time of the work on an
+    H100 SXM."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def bert_mask(rng, B, S, device):
     """Additive BERT key mask [B,1,1,S]: -10000 on padding, each sequence
     keeping between S/2 and S tokens."""
@@ -91,92 +123,225 @@ def bert_mask(rng, B, S, device):
     return torch.from_numpy(mask).reshape(B, 1, 1, S).to(device)
 
 
-def flash_checks(rng, fa):
-    """Phase 2a: the CUDA flash kernel against its plain version."""
-    dev = "cuda"
-    # (atol, reason, rtol)
-    tol = {torch.bfloat16: (1e-2, "the kernel rounds P to bf16 before the "
-                            "P.V product (2^-9 relative, |v| <= ~5), and "
-                            "both sides round o to bf16 (one ulp, 2^-7 "
-                            "relative)", 2.0 ** -7),
-           torch.float32: (1e-4, "f32 throughout; the order of the sums "
-                           "over d and over keys differs", 0.0)}
-    lse_tol, lse_why = 1e-3, "f32 scores and sums; summation order differs"
+def seed_tensor(rng):
+    """A dropout seed: one int32 on the card, the full int32 range."""
+    return torch.tensor([int(rng.integers(-2**31, 2**31))],
+                        dtype=torch.int32, device="cuda")
 
-    def case(label, B, H, S, D, dtype, mask=None, causal=False):
-        if B * H * S * D > 1 << 26:   # large inputs: drawn on the card
-            gen = torch.Generator(dev).manual_seed(int(rng.integers(1 << 31)))
-            q, k, v = (torch.randn(B, H, S, D, generator=gen, device=dev)
-                       .to(dtype) for _ in range(3))
-        else:
-            q, k, v = (torch.from_numpy(rng.standard_normal(
-                (B, H, S, D)).astype(np.float32)).to(dev, dtype)
-                for _ in range(3))
-        o, lse = fa.flash_attention_fwd(q, k, v, mask=mask, causal=causal)
+
+def randn(rng, shape, dtype):
+    """Normal inputs on the card: drawn there when large, else from rng."""
+    if math.prod(shape) > 1 << 26:
+        gen = torch.Generator("cuda").manual_seed(int(rng.integers(1 << 31)))
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to("cuda", dtype)
+
+
+# -- phase 1 -----------------------------------------------------------------
+
+def build_kernels(build, ce):
+    """One nvcc per CUDA source, all at once; then the Triton kernels."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:
+        libs = dict(zip(CUDA_SOURCES, pool.map(build.build, CUDA_SOURCES)))
+    log(f"build: nvcc {' '.join(CUDA_SOURCES)} in parallel "
+        f"{time.perf_counter() - t0:.1f} s")
+    for source, lib in libs.items():
+        with open(lib + ".log") as f:
+            for line in f:
+                if "Used" in line or "spill" in line.lower():
+                    log(f"  {source}: " + line.strip())
+    t0 = time.perf_counter()
+    probe = torch.zeros(8, 1024, device="cuda", dtype=torch.bfloat16)
+    labels = torch.zeros(8, dtype=torch.int32, device="cuda")
+    _, lse = ce.softmax_ce_fwd(probe, labels)
+    ce.softmax_ce_bwd(probe, labels, lse, torch.ones_like(lse))
+    torch.cuda.synchronize()
+    log(f"build: triton softmax_ce_fwd, softmax_ce_bwd "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+# -- phase 2 -----------------------------------------------------------------
+
+# (atol, reason, rtol) of the flash forward's o
+FWD_TOL = {
+    torch.bfloat16: (1e-2, "the kernel rounds P to bf16 before the P.V "
+                     "product (2^-9 relative, |v| <= ~5), and both sides "
+                     "round o to bf16 (one ulp, 2^-7 relative)", 2.0 ** -7),
+    torch.float32: (1e-4, "f32 throughout; the order of the sums over d "
+                    "and over keys differs", 0.0)}
+LSE_TOL = (1e-3, "f32 scores and sums; summation order differs")
+# (atol, reason, rtol) of dQ, dK, dV
+BWD_TOL = {
+    torch.bfloat16: (2e-3, "both sides round dS and P~ to bf16 before "
+                     "their products and the result to bf16 (one ulp, "
+                     "2^-7 relative); f32 scores computed in another order "
+                     "flip the rounding of a few dS terms (2^-8 of a term "
+                     "of ~1e-3)", 2.0 ** -7),
+    torch.float32: (1e-4, "f32 throughout; the order of the sums over d, "
+                    "keys and queries differs", 1e-4)}
+
+
+def dropout_checks(rng, fa):
+    """Phase 2a: the CUDA keep-mask helper against the plain hash, bitwise,
+    at the slice shape and at S=200."""
+    for bh, s in ((64 * 12, 512), (2 * 3, 200)):
+        seed = seed_tensor(rng)
+        got = fa.dropout_keep_mask(seed, bh, s, s, 0.9)
+        torch.cuda.synchronize()
+        want = fa.dropout_keep_mask_plain(seed, bh, s, s, 0.9)
+        diff = int((got != want).sum())
+        frac = got.float().mean().item()
+        log(f"check dropout keep bits [{bh},{s},{s}] seed {seed.item()}: "
+            f"{diff} of {got.numel()} differ, keep fraction {frac:.6f}")
+        require(f"dropout keep bits [{bh},{s},{s}] bitwise equal", diff == 0)
+        del got, want
+
+
+def flash_fwd_checks(rng, fa):
+    """Phase 2b: the CUDA flash forward against its plain version."""
+    def case(label, B, H, S, D, dtype, mask=None, causal=False, keep=1.0):
+        q, k, v = (randn(rng, (B, H, S, D), dtype) for _ in range(3))
+        seed = seed_tensor(rng) if keep < 1.0 else None
+        o, lse = fa.flash_attention_fwd(q, k, v, mask=mask, causal=causal,
+                                        dropout_keep=keep, seed=seed)
         torch.cuda.synchronize()
         o_p, lse_p = fa.flash_attention_plain(q, k, v, mask=mask,
-                                              causal=causal)
-        name = f"flash {label} {str(dtype).split('.')[-1]}"
-        err = check(f"{name} o", o, o_p, *tol[dtype])
-        check(f"{name} lse", lse, lse_p, lse_tol, lse_why)
-        return q, k, v, o, lse, err
+                                              causal=causal,
+                                              dropout_keep=keep, seed=seed)
+        name = f"flash fwd {label} {str(dtype).split('.')[-1]}"
+        err = check(f"{name} o", o, o_p, *FWD_TOL[dtype])
+        check(f"{name} lse", lse, lse_p, *LSE_TOL)
+        return o, lse, err
 
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
-        mask = bert_mask(rng, 64, 512, dev)
+        mask = bert_mask(rng, 64, 512, "cuda")
         errs[dtype] = case("[64,12,512,64] bert-mask", 64, 12, 512, 64,
                            dtype, mask=mask)[-1]
+        errs[dtype, 0.9] = case("[64,12,512,64] bert-mask keep 0.9", 64, 12,
+                                512, 64, dtype, mask=mask, keep=0.9)[-1]
         case("[2,4,512,64] causal", 2, 4, 512, 64, dtype, causal=True)
-        case("[2,4,512,64] causal+mask", 2, 4, 512, 64, dtype,
-             mask=bert_mask(rng, 2, 512, dev), causal=True)
-        empty = bert_mask(rng, 2, 256, dev) * 1e26   # -1e30 on padding
-        empty[1] = -1e30                              # every key of batch 1
-        *_, o, lse, _ = case("[2,4,256,64] fully-masked", 2, 4, 256, 64,
-                             dtype, mask=empty)
-        if not (bool((o[1] == 0).all()) and bool((lse[1] == 1e30).all())):
-            log("check flash fully-masked rows: o != 0 or lse != 1e30 FAIL")
-            failures.append("flash fully-masked rows")
+        case("[2,4,512,64] causal+mask keep 0.9", 2, 4, 512, 64, dtype,
+             mask=bert_mask(rng, 2, 512, "cuda"), causal=True, keep=0.9)
+        empty = bert_mask(rng, 2, 256, "cuda") * 1e26  # -1e30 on padding
+        empty[1] = -1e30                                # every key of batch 1
+        o, lse, _ = case("[2,4,256,64] fully-masked", 2, 4, 256, 64, dtype,
+                         mask=empty)
+        require(f"flash fwd fully-masked rows o = 0, lse = 1e30 "
+                f"{str(dtype).split('.')[-1]}",
+                bool((o[1] == 0).all()) and bool((lse[1] == 1e30).all()))
         case("[2,3,200,40] padded+mask", 2, 3, 200, 40, dtype,
-             mask=bert_mask(rng, 2, 200, dev))
+             mask=bert_mask(rng, 2, 200, "cuda"))
+        case("[2,3,200,40] padded+mask keep 0.9", 2, 3, 200, 40, dtype,
+             mask=bert_mask(rng, 2, 200, "cuda"), keep=0.9)
         case("[2,3,200,40] padded causal", 2, 3, 200, 40, dtype, causal=True)
         case("[1,2,256,128] head-128", 1, 2, 256, 128, dtype,
-             mask=bert_mask(rng, 1, 256, dev))
+             mask=bert_mask(rng, 1, 256, "cuda"))
         case("[1,2,256,256] wide-head", 1, 2, 256, 256, dtype,
-             mask=bert_mask(rng, 1, 256, dev))
+             mask=bert_mask(rng, 1, 256, "cuda"))
         case("[1,2,256,512] widest-head causal", 1, 2, 256, 512, dtype,
              causal=True)
         # more (batch, head) pairs than the 65535 blocks of a grid's y axis
         case("[4100,16,128,32] many-heads", 4100, 16, 128, 32, dtype,
-             mask=bert_mask(rng, 4100, 128, dev))
+             mask=bert_mask(rng, 4100, 128, "cuda"))
+    return errs
+
+
+def flash_bwd_checks(rng, fa):
+    """Phase 2c: the dQ and dK/dV kernels against the plain backward, from
+    the same forward outputs (o, lse) and cotangent."""
+    def case(label, B, H, S, D, dtype, mask=None, causal=False, keep=1.0):
+        q, k, v, do = (randn(rng, (B, H, S, D), dtype) for _ in range(4))
+        seed = seed_tensor(rng) if keep < 1.0 else None
+        o, lse = fa.flash_attention_fwd(q, k, v, mask=mask, causal=causal,
+                                        dropout_keep=keep, seed=seed)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, mask=mask,
+                                       causal=causal, dropout_keep=keep,
+                                       seed=seed)
+        torch.cuda.synchronize()
+        plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, mask=mask,
+                                             causal=causal,
+                                             dropout_keep=keep, seed=seed)
+        name = f"flash bwd {label} {str(dtype).split('.')[-1]}"
+        errs = [check(f"{name} {g}", got, want, *BWD_TOL[dtype])
+                for g, got, want in zip(("dq", "dk", "dv"), grads, plain)]
+        return grads, errs
+
+    errs = {}
+    dtype = torch.bfloat16
+    mask = bert_mask(rng, 64, 512, "cuda")
+    _, e = case("[64,12,512,64] bert-mask keep 0.9", 64, 12, 512, 64, dtype,
+                mask=mask, keep=0.9)
+    errs["dq"], errs["dkv"] = e[0], max(e[1:])
+    case("[64,12,512,64] bert-mask keep 1.0", 64, 12, 512, 64, dtype,
+         mask=mask)
+    for dtype in (torch.bfloat16, torch.float32):
+        case("[2,4,512,64] bert-mask keep 0.9", 2, 4, 512, 64, dtype,
+             mask=bert_mask(rng, 2, 512, "cuda"), keep=0.9)
+        case("[2,4,512,64] causal keep 0.9", 2, 4, 512, 64, dtype,
+             causal=True, keep=0.9)
+        case("[2,4,512,64] causal+mask", 2, 4, 512, 64, dtype,
+             mask=bert_mask(rng, 2, 512, "cuda"), causal=True)
+        empty = bert_mask(rng, 2, 256, "cuda") * 1e26
+        empty[1] = -1e30
+        grads, _ = case("[2,4,256,64] fully-masked keep 0.9", 2, 4, 256, 64,
+                        dtype, mask=empty, keep=0.9)
+        require(f"flash bwd fully-masked rows give zero gradients "
+                f"{str(dtype).split('.')[-1]}",
+                all(bool((g[1] == 0).all()) for g in grads))
+        case("[2,3,200,40] padded+mask keep 0.9", 2, 3, 200, 40, dtype,
+             mask=bert_mask(rng, 2, 200, "cuda"), keep=0.9)
+        case("[2,3,200,40] padded causal", 2, 3, 200, 40, dtype, causal=True)
+        case("[1,2,256,128] head-128 keep 0.9", 1, 2, 256, 128, dtype,
+             mask=bert_mask(rng, 1, 256, "cuda"), keep=0.9)
+        case("[1,2,256,256] wide-head causal keep 0.9", 1, 2, 256, 256,
+             dtype, causal=True, keep=0.9)
+        case("[1,2,256,512] widest-head", 1, 2, 256, 512, dtype,
+             mask=bert_mask(rng, 1, 256, "cuda"))
     return errs
 
 
 def ce_checks(rng, ce):
-    """Phase 2b: the Triton CE kernel against its plain version."""
+    """Phase 2d: the Triton CE forward and backward against their plain
+    versions, ~15% ignored labels."""
     why = "f32 online max/sum-exp over the same upcast values; order differs"
+    bwd_tol = {torch.bfloat16: (1e-6, "the same f32 formula on both sides; "
+                                "exp may differ in its last f32 bit, which "
+                                "can flip the bf16 rounding (one ulp)",
+                                2.0 ** -7),
+               torch.float32: (1e-6, "the same f32 formula; exp may differ "
+                               "in its last bits", 1e-5)}
 
     def case(N, V, dtype):
-        x = torch.from_numpy(
-            (3.0 * rng.standard_normal((N, V))).astype(np.float32)).to(
-                "cuda", dtype)
+        x = randn(rng, (N, V), torch.float32).mul_(3.0).to(dtype)
         labels = rng.integers(0, V, N)
         labels[rng.random(N) < 0.15] = -1
         labels = torch.from_numpy(labels.astype(np.int32)).cuda()
+        g = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).cuda()
         loss, lse = ce.softmax_ce_fwd(x, labels)
+        dx = ce.softmax_ce_bwd(x, labels, lse, g)
         torch.cuda.synchronize()
         loss_p, lse_p = ce.softmax_ce_plain(x, labels)
+        dx_p = ce.softmax_ce_bwd_plain(x, labels, lse, g)
         name = f"ce [{N},{V}] {str(dtype).split('.')[-1]}"
         err = check(f"{name} loss", loss, loss_p, 2e-4, why)
         check(f"{name} lse", lse, lse_p, 2e-4, why)
-        return err
+        err_bwd = check(f"{name} dx", dx, dx_p, *bwd_tol[dtype])
+        require(f"{name} dx zero on ignored rows and in the logits' dtype",
+                bool((dx[labels == -1] == 0).all()) and dx.dtype == dtype)
+        return err, err_bwd
 
-    err = case(8192, 30522, torch.bfloat16)
+    errs = case(8192, 30522, torch.bfloat16)
     case(300, 3000, torch.bfloat16)
     case(300, 3000, torch.float32)
-    return err
+    return errs
 
 
-def build_bert(ht, models, B, S, L):
+# -- phase 3 -----------------------------------------------------------------
+
+def build_bert(ht, models, B, S, L, dropout=0.1):
     """The BERT-base pretraining loss graph at batch B, seq S, L layers."""
     ph = ht.placeholder_op
     feeds = (ph("input_ids", (B, S), dtype=np.int32),
@@ -188,6 +353,8 @@ def build_bert(ht, models, B, S, L):
                             num_hidden_layers=L, num_attention_heads=12,
                             intermediate_size=3072,
                             max_position_embeddings=512, seq_len=S,
+                            hidden_dropout_prob=dropout,
+                            attention_probs_dropout_prob=dropout,
                             mlm_bucket_frac=0.25)
     return models.BertForPreTraining(cfg).loss(*feeds)
 
@@ -208,8 +375,47 @@ def bert_batch(rng, B, S, device):
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
-def profile_steps(ex, feed, steps=2, top=12):
-    """Where a main-path step's time goes: device time by kernel under
+def counters(fa, ce):
+    """The five launch counters of the paths' kernels."""
+    return {"flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "softmax_ce_fwd": ce.softmax_ce_fwd,
+            "softmax_ce_bwd": ce.softmax_ce_bwd}
+
+
+def run_path(label, step, fa, ce, steps, B, expect):
+    """3 warm-up steps, then ``steps`` timed steps with the launch counters
+    zeroed just before and read just after; returns (losses of every step,
+    ms/step, launches)."""
+    losses = [step() for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fns = counters(fa, ce)
+    for fn in fns.values():
+        fn.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        losses.append(step())
+    end.record()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in fns.items()}
+    ms = start.elapsed_time(end) / steps
+    losses = [float(v) for v in losses]
+    log(f"{label}: {ms:.3f} ms/step, {B * 1000.0 / ms:.1f} samples/s, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"launches {launches} over {steps} steps")
+    log(f"{label}: losses {' '.join(f'{v:.6f}' for v in losses)}")
+    require(f"{label}: {len(losses)} losses finite",
+            all(math.isfinite(v) for v in losses))
+    require(f"{label}: launch counts {expect}", launches == expect)
+    return losses, ms, launches
+
+
+def profile_steps(label, step, steps=2, top=12):
+    """Where a path's step time goes: device time by kernel under
     torch.profiler, and the device's idle share of the traced window."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -217,23 +423,26 @@ def profile_steps(ex, feed, steps=2, top=12):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            ex.run("validate", feed_dict=feed)
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us <= 0:
-        log("profile: the profiler saw no device time")
+        log(f"profile {label}: the profiler saw no device time")
         return
-    log(f"profile: {steps} steps, {wall_us / steps / 1e3:.3f} ms/step wall "
-        f"(traced), device busy {busy_us / steps / 1e3:.3f} ms/step, "
-        f"idle share {max(0.0, 1 - busy_us / wall_us):.3f}, "
+    log(f"profile {label}: {steps} steps, {wall_us / steps / 1e3:.3f} "
+        f"ms/step wall (traced), device busy {busy_us / steps / 1e3:.3f} "
+        f"ms/step, idle share {max(0.0, 1 - busy_us / wall_us):.3f}, "
         f"{sum(e.count for e in kernels) // steps} kernel launches/step")
-    # kernel classes by name: our two kernels, cuBLAS GEMMs, reductions
-    # (layer-norm moments, means), copies and casts, other elementwise
+    # kernel classes by name: the five kernels, cuBLAS GEMMs, reductions
+    # (layer-norm moments, means, sums), copies and casts, other elementwise
     classes = (("flash_attention_fwd", ("flash_fwd",)),
+               ("flash_attention_bwd_dq", ("flash_bwd_dq",)),
+               ("flash_attention_bwd_dkv", ("flash_bwd_dkv",)),
                ("softmax_ce_fwd", ("_ce_fwd_kernel",)),
+               ("softmax_ce_bwd", ("_ce_bwd_kernel",)),
                ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
                ("reduce", ("reduce_kernel",)),
                ("copy/cast", ("copy_kernel",)),
@@ -251,6 +460,151 @@ def profile_steps(ex, feed, steps=2, top=12):
         log(f"  {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
             f"{e.self_device_time_total / busy_us:6.1%} x{e.count // steps:<4d}"
             f" {e.key.replace('void at::native::', '')[:140]}")
+
+
+def kernel_times(rng, fa, ce, B, S):
+    """Each kernel at the paths' shapes: ms, bound, plain ms, library ms."""
+    H, D = 12, 64
+    bf = torch.bfloat16
+    q, k, v, do = (torch.randn(B, H, S, D, device="cuda", dtype=bf)
+                   for _ in range(4))
+    mask = bert_mask(rng, B, S, "cuda")
+    seed = seed_tensor(rng)
+    n = q.numel()
+    out = {}
+    fwd = lambda keep: fa.flash_attention_fwd(  # noqa: E731
+        q, k, v, mask=mask, dropout_keep=keep, seed=seed)
+    t_fwd = time_ms(lambda: fwd(0.9), 20)
+    t_fwd_eval = time_ms(lambda: fwd(1.0), 20)
+    t_plain = time_ms(lambda: fa.flash_attention_plain(
+        q, k, v, mask=mask, dropout_keep=0.9, seed=seed), 3)
+    mask_bf16 = mask.to(bf)
+    t_lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask_bf16), 20)
+    out["flash_attention_fwd"] = dict(
+        ms=t_fwd, plain_ms=t_plain, library_ms=t_lib,
+        bound=bound(4 * n * 2 + mask.numel() * 4 + B * H * S * 4,
+                    4 * B * H * S * S * D, bf))
+    log(f"kernel flash_attention_fwd [64,12,512,64] bf16: keep 0.9 "
+        f"{t_fwd:.4f} ms, keep 1.0 {t_fwd_eval:.4f} ms")
+
+    o, lse = fwd(0.9)
+    dsum = (do.float() * o.float()).sum(-1)
+    t_dq = time_ms(lambda: fa.flash_attention_bwd_dq(
+        q, k, v, do, lse, dsum, mask=mask, dropout_keep=0.9, seed=seed), 20)
+    t_dkv = time_ms(lambda: fa.flash_attention_bwd_dkv(
+        q, k, v, do, lse, dsum, mask=mask, dropout_keep=0.9, seed=seed), 20)
+    t_bwd_plain = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, mask=mask, dropout_keep=0.9, seed=seed), 3)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask_bf16)
+    t_bwd_lib = time_ms(lambda: torch.autograd.grad(
+        o_lib, (qg, kg, vg), do, retain_graph=True), 20)
+    small = B * H * S * 4 * 2 + mask.numel() * 4  # lse, D, mask
+    out["flash_attention_bwd_dq"] = dict(
+        ms=t_dq, plain_ms=t_bwd_plain, library_ms=t_bwd_lib,
+        bound=bound(5 * n * 2 + small, 6 * B * H * S * S * D, bf))
+    out["flash_attention_bwd_dkv"] = dict(
+        ms=t_dkv, plain_ms=t_bwd_plain, library_ms=t_bwd_lib,
+        bound=bound(6 * n * 2 + small, 8 * B * H * S * S * D, bf))
+    del q, k, v, do, o, lse, dsum, qg, kg, vg, o_lib
+
+    N, V = B * S // 4, 30522
+    logits = torch.randn(N, V, device="cuda", dtype=bf) * 3
+    labels = torch.from_numpy(rng.integers(0, V, N).astype(np.int32)).cuda()
+    labels[torch.from_numpy(rng.random(N) < 0.15).cuda()] = -1
+    labels64 = labels.long()
+    g = torch.randn(N, device="cuda")
+    t_ce = time_ms(lambda: ce.softmax_ce_fwd(logits, labels), 20)
+    t_ce_plain = time_ms(lambda: ce.softmax_ce_plain(logits, labels), 5)
+    t_ce_lib = time_ms(lambda: F.cross_entropy(
+        logits, labels64, reduction="none", ignore_index=-1), 20)
+    out["softmax_ce_fwd"] = dict(
+        ms=t_ce, plain_ms=t_ce_plain, library_ms=t_ce_lib,
+        # max, subtract, exp, add per element (f32 vector)
+        bound=bound(logits.numel() * 2 + N * 4 + 2 * N * 4, 4 * N * V,
+                    torch.float32))
+    _, lse = ce.softmax_ce_fwd(logits, labels)
+    t_ceb = time_ms(lambda: ce.softmax_ce_bwd(logits, labels, lse, g), 20)
+    t_ceb_plain = time_ms(lambda: ce.softmax_ce_bwd_plain(
+        logits, labels, lse, g), 5)
+    xg = logits.detach().requires_grad_()
+    l_lib = F.cross_entropy(xg, labels64, reduction="none", ignore_index=-1)
+    t_ceb_lib = time_ms(lambda: torch.autograd.grad(
+        l_lib, xg, g, retain_graph=True), 20)
+    out["softmax_ce_bwd"] = dict(
+        ms=t_ceb, plain_ms=t_ceb_plain, library_ms=t_ceb_lib,
+        # subtract, exp, subtract, multiply per element (f32 vector)
+        bound=bound(2 * logits.numel() * 2 + 3 * N * 4, 4 * N * V,
+                    torch.float32))
+    del logits, xg, l_lib
+    shapes = {"flash_attention_fwd": "[64,12,512,64] bf16 keep 0.9",
+              "flash_attention_bwd_dq": "[64,12,512,64] bf16 keep 0.9",
+              "flash_attention_bwd_dkv": "[64,12,512,64] bf16 keep 0.9",
+              "softmax_ce_fwd": f"[{N},{V}] bf16",
+              "softmax_ce_bwd": f"[{N},{V}] bf16"}
+    library = {"flash_attention_fwd": "scaled_dot_product_attention",
+               "flash_attention_bwd_dq": "scaled_dot_product_attention "
+                                         "backward (dq, dk, dv; no dropout)",
+               "flash_attention_bwd_dkv": "scaled_dot_product_attention "
+                                          "backward (dq, dk, dv; no dropout)",
+               "softmax_ce_fwd": "cross_entropy",
+               "softmax_ce_bwd": "cross_entropy backward"}
+    for name, r in out.items():
+        log(f"kernel {name} {shapes[name]}: {r['ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), plain "
+            f"{r['plain_ms']:.4f} ms, {library[name]} {r['library_ms']:.4f} "
+            "ms")
+    return out
+
+
+def cross_device(ht, models, rng, seed):
+    """One f32 training step of BERT (batch 2, 2 layers, full widths,
+    dropout off) from the same params on the card and on the CPU."""
+    S = 512
+    loss = build_bert(ht, models, 2, S, 2, dropout=0.0)
+    xs = ht.graph_variables([loss], trainable_only=True)
+    grads = ht.gradients(loss, xs)
+    opt = ht.AdamWOptimizer(learning_rate=1e-4, weight_decay=0.01)
+    train_op = opt.apply_gradients(list(zip(grads, xs)))
+    nodes = {"train": [loss, train_op, *grads]}
+    ex_gpu = ht.Executor(nodes, device="cuda", seed=seed + 1)
+    ex_cpu = ht.Executor(nodes, device="cpu", seed=seed + 2)
+    ex_cpu.load_state_dict(ex_gpu.state_dict())
+    feed = bert_batch(rng, 2, S, "cpu")
+    out_gpu = ex_gpu.run("train", feed_dict=feed)
+    out_cpu = ex_cpu.run("train", feed_dict=feed)
+    torch.cuda.synchronize()
+    check("cross-device f32 BERT train loss (card kernels vs CPU plain)",
+          out_gpu[0].cpu(), out_cpu[0], 1e-3,
+          "f32 on both sides; attention, layer norm and the 30522-way "
+          "logsumexp sum in another order")
+    # atol scaled by the largest gradient of the model: the attention key
+    # biases' gradient is zero in exact arithmetic (softmax ignores a
+    # constant added to a row), so both sides hold only rounding noise
+    scale = max(g.abs().max().item() for g in out_cpu[2:])
+    worst, bad = (0.0, None), []
+    for x, g_gpu, g_cpu in zip(xs, out_gpu[2:], out_cpu[2:]):
+        diff = (g_gpu.cpu() - g_cpu).abs()
+        err = diff.max().item()
+        if err > worst[0]:
+            worst = (err, x.name)
+        if not (diff - 1e-3 * g_cpu.abs()).max().item() <= 1e-5 * scale:
+            bad.append(x.name)
+    log(f"check cross-device f32 gradients of {len(xs)} params: worst "
+        f"max_abs_err={worst[0]:.3e} ({worst[1]}) tol=1e-5*{scale:.3e} + "
+        "1e-3*|g| (f32 on both sides; sums over 1024 tokens, 512 keys and "
+        "30522 classes in another order) "
+        f"{'FAIL ' + str(bad) if bad else 'ok'}")
+    if bad:
+        failures.append("cross-device gradients")
+    params_gpu = {k: v.cpu() for k, v in ex_gpu.params.items()}
+    err = max((params_gpu[k].float() - v.float()).abs().max().item()
+              for k, v in ex_cpu.params.items())
+    require(f"cross-device params after one AdamW step: max_abs_err="
+            f"{err:.3e} tol=2e-4 (2 lr: at step 1 the update is "
+            "lr*g/(|g|+eps), whose sign flips where |g| is at noise level)",
+            err <= 2e-4)
 
 
 def main():
@@ -278,149 +632,106 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    lib = build.build("flash_attention_fwd.cu")
-    log(f"build: nvcc flash_attention_fwd.cu {time.perf_counter() - t0:.1f} s")
-    with open(lib + ".log") as f:
-        for line in f:
-            if "Used" in line or "spill" in line.lower():
-                log("  " + line.strip())
-    t0 = time.perf_counter()
-    probe = torch.zeros(8, 1024, device="cuda", dtype=torch.bfloat16)
-    ce.softmax_ce_fwd(probe, torch.zeros(8, dtype=torch.int32,
-                                         device="cuda"))
-    torch.cuda.synchronize()
-    log(f"build: triton softmax_ce_fwd {time.perf_counter() - t0:.1f} s")
+    build_kernels(build, ce)
 
     # -- phase 2: kernels against their plain versions ----------------------
     rng = np.random.default_rng(args.seed)
     torch.manual_seed(args.seed)
-    flash_err = flash_checks(rng, fa)
-    ce_err = ce_checks(rng, ce)
+    dropout_checks(rng, fa)
+    fwd_err = flash_fwd_checks(rng, fa)
+    bwd_err = flash_bwd_checks(rng, fa)
+    ce_err, ce_bwd_err = ce_checks(rng, ce)
+    torch.cuda.empty_cache()
     if failures:
         log(f"FAILED checks: {failures}")
         return 1
 
-    # -- phase 3: the main path ---------------------------------------------
+    # -- phase 3: the main paths --------------------------------------------
     B, S, L = 64, 512, 12
+    steps = args.steps
     loss = build_bert(ht, models, B, S, L)
     t0 = time.perf_counter()
     ex = ht.Executor({"validate": [loss]}, compute_dtype=torch.bfloat16,
                      device="cuda", seed=args.seed)
     torch.cuda.synchronize()
-    log(f"main path: BERT-base B={B} S={S} L={L}, "
+    log(f"eval path: BERT-base B={B} S={S} L={L}, "
         f"{sum(p.numel() for p in ex.params.values())} params, init "
         f"{time.perf_counter() - t0:.1f} s")
     feed = bert_batch(rng, B, S, "cuda")
-    for _ in range(3):
-        ex.run("validate", feed_dict=feed)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_fwd.launches = 0
-    ce.softmax_ce_fwd.launches = 0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(args.steps):
-        (val,) = ex.run("validate", feed_dict=feed)
-    end.record()
-    torch.cuda.synchronize()
-    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
-                "softmax_ce_fwd": ce.softmax_ce_fwd.launches}
-    ms = start.elapsed_time(end) / args.steps
-    loss_val = val.item()
-    log(f"main path: loss {loss_val:.6f}, {ms:.3f} ms/step, "
-        f"{B * 1000.0 / ms:.1f} samples/s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-        f"launches {launches} over {args.steps} steps")
-    if not math.isfinite(loss_val):
-        failures.append("main path loss not finite")
-    if launches != {"flash_attention_fwd": L * args.steps,
-                    "softmax_ce_fwd": args.steps}:
-        failures.append("main path launch counts")
+    eval_step = lambda: ex.run("validate", feed_dict=feed)[0]  # noqa: E731
+    run_path("eval path", eval_step, fa, ce, steps, B,
+             {"flash_attention_fwd": L * steps, "flash_attention_bwd_dq": 0,
+              "flash_attention_bwd_dkv": 0, "softmax_ce_fwd": steps,
+              "softmax_ce_bwd": 0})
     if failures:
         log(f"FAILED: {failures}")
         return 1
-    profile_steps(ex, feed)
-    del ex, feed
+    profile_steps("eval path", eval_step)
+    del ex, eval_step
     torch.cuda.empty_cache()
 
-    # per-kernel times at the path's shapes
-    H, D = 12, 64
-    q, k, v = (torch.randn(B, H, S, D, device="cuda", dtype=torch.bfloat16)
-               for _ in range(3))
-    mask = bert_mask(rng, B, S, "cuda")
-    flash_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, mask=mask), 20)
-    flash_plain_ms = time_ms(
-        lambda: fa.flash_attention_plain(q, k, v, mask=mask), 5)
-    mask_bf16 = mask.to(torch.bfloat16)
-    flash_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask_bf16), 20)
-    flash_bytes = 4 * q.numel() * 2 + mask.numel() * 4 + B * H * S * 4
-    flash_ops = 4 * B * H * S * S * D
-    flash_bound = max(flash_bytes / HBM_BYTES_PER_S,
-                      flash_ops / PEAK_OPS[torch.bfloat16]) * 1e3
-    flash_by = ("bytes" if flash_bytes / HBM_BYTES_PER_S
-                >= flash_ops / PEAK_OPS[torch.bfloat16] else "operations")
-    del q, k, v
+    loss = build_bert(ht, models, B, S, L, dropout=0.1)
+    opt = ht.AdamWOptimizer(learning_rate=1e-4, weight_decay=0.01)
+    train_op = opt.minimize(loss)
+    t0 = time.perf_counter()
+    ex = ht.Executor({"train": [loss, train_op]},
+                     compute_dtype=torch.bfloat16, device="cuda",
+                     seed=args.seed, rng_impl="rbg")
+    torch.cuda.synchronize()
+    log(f"train path: BERT-base B={B} S={S} L={L} dropout 0.1, AdamW(1e-4, "
+        f"wd 0.01) over f32 masters, bf16 compute, init "
+        f"{time.perf_counter() - t0:.1f} s")
 
-    N, V = 8192, 30522
-    logits = torch.randn(N, V, device="cuda", dtype=torch.bfloat16) * 3
-    labels = torch.from_numpy(rng.integers(0, V, N).astype(np.int32)).cuda()
-    labels[torch.from_numpy(rng.random(N) < 0.15).cuda()] = -1
-    labels64 = labels.long()
-    ce_ms = time_ms(lambda: ce.softmax_ce_fwd(logits, labels), 20)
-    ce_plain_ms = time_ms(lambda: ce.softmax_ce_plain(logits, labels), 5)
-    ce_lib_ms = time_ms(lambda: F.cross_entropy(
-        logits, labels64, reduction="none", ignore_index=-1), 20)
-    ce_bytes = logits.numel() * 2 + N * 4 + 2 * N * 4
-    ce_ops = 4 * N * V   # max, subtract, exp, add per element (f32 vector)
-    ce_bound = max(ce_bytes / HBM_BYTES_PER_S,
-                   ce_ops / PEAK_OPS[torch.float32]) * 1e3
-    ce_by = ("bytes" if ce_bytes / HBM_BYTES_PER_S
-             >= ce_ops / PEAK_OPS[torch.float32] else "operations")
-    del logits
-    log(f"kernel flash_attention_fwd [64,12,512,64] bf16: {flash_ms:.4f} ms, "
-        f"bound {flash_bound:.4f} ms ({flash_by}), plain {flash_plain_ms:.4f} "
-        f"ms, scaled_dot_product_attention {flash_lib_ms:.4f} ms")
-    log(f"kernel softmax_ce_fwd [8192,30522] bf16: {ce_ms:.4f} ms, bound "
-        f"{ce_bound:.4f} ms ({ce_by}), plain {ce_plain_ms:.4f} ms, "
-        f"cross_entropy {ce_lib_ms:.4f} ms")
+    def train_step():
+        val, none = ex.run("train", feed_dict=feed)
+        if none is not None:
+            raise RuntimeError("run('train') must return [loss, None]")
+        return val
 
-    # the same weights at f32 on the card and on the CPU
-    small = build_bert(ht, models, 2, S, 2)
-    ex_gpu = ht.Executor({"validate": [small]}, device="cuda",
-                         seed=args.seed + 1)
-    ex_cpu = ht.Executor({"validate": [small]}, device="cpu",
-                         seed=args.seed + 2)
-    ex_cpu.load_state_dict(ex_gpu.state_dict())
-    feed_small = bert_batch(rng, 2, S, "cpu")
-    (l_gpu,) = ex_gpu.run("validate", feed_dict=feed_small)
-    (l_cpu,) = ex_cpu.run("validate", feed_dict=feed_small)
-    check("cross-device f32 BERT loss (card flash+CE kernels vs CPU "
-          "composition+plain CE)", l_gpu.cpu(), l_cpu, 1e-3,
-          "f32 on both sides; attention, layer norm and the 30522-way "
-          "logsumexp sum in another order")
+    _, train_ms, train_launches = run_path(
+        "train path", train_step, fa, ce, steps, B,
+        {"flash_attention_fwd": L * steps, "flash_attention_bwd_dq": L * steps,
+         "flash_attention_bwd_dkv": L * steps, "softmax_ce_fwd": steps,
+         "softmax_ce_bwd": steps})
+    if failures:
+        log(f"FAILED: {failures}")
+        return 1
+    profile_steps("train path", train_step, steps=1)
+    del ex, feed, train_step
+    torch.cuda.empty_cache()
+
+    times = kernel_times(rng, fa, ce, B, S)
+    torch.cuda.empty_cache()
+    cross_device(ht, models, rng, args.seed)
     if failures:
         log(f"FAILED: {failures}")
         return 1
 
     # -- phase 4: result ----------------------------------------------------
-    kernels = [
-        {"name": "flash_attention_fwd", "route": "cuda",
-         "source": "hetu_tpu_torch/csrc/flash_attention_fwd.cu",
-         "replaces": "hetu_tpu/ops/pallas/flash_attention.py:266",
-         "launches": launches["flash_attention_fwd"],
-         "max_abs_err": flash_err[torch.bfloat16], "ms": flash_ms,
-         "plain_ms": flash_plain_ms, "bound_ms": flash_bound,
-         "bound_by": flash_by, "library_ms": flash_lib_ms},
-        {"name": "softmax_ce_fwd", "route": "triton",
-         "source": "hetu_tpu_torch/ops/kernels/softmax_ce.py",
-         "replaces": "hetu_tpu/ops/pallas/softmax_ce.py:109",
-         "launches": launches["softmax_ce_fwd"], "max_abs_err": ce_err,
-         "ms": ce_ms, "plain_ms": ce_plain_ms, "bound_ms": ce_bound,
-         "bound_by": ce_by, "library_ms": ce_lib_ms},
+    src = "hetu_tpu_torch/"
+    rows = [
+        ("flash_attention_fwd", "cuda", src + "csrc/flash_attention_fwd.cu",
+         "hetu_tpu/ops/pallas/flash_attention.py:266",
+         fwd_err[torch.bfloat16, 0.9]),
+        ("flash_attention_bwd_dq", "cuda", src + "csrc/flash_attention_bwd.cu",
+         "hetu_tpu/ops/pallas/flash_attention.py:448", bwd_err["dq"]),
+        ("flash_attention_bwd_dkv", "cuda",
+         src + "csrc/flash_attention_bwd.cu",
+         "hetu_tpu/ops/pallas/flash_attention.py:463", bwd_err["dkv"]),
+        ("softmax_ce_fwd", "triton", src + "ops/kernels/softmax_ce.py",
+         "hetu_tpu/ops/pallas/softmax_ce.py:109", ce_err),
+        ("softmax_ce_bwd", "triton", src + "ops/kernels/softmax_ce.py",
+         "hetu_tpu/ops/pallas/softmax_ce.py:140", ce_bwd_err),
     ]
+    kernels = [{"name": name, "route": route, "source": source,
+                "replaces": replaces, "launches": train_launches[name],
+                "max_abs_err": err, "ms": times[name]["ms"],
+                "plain_ms": times[name]["plain_ms"],
+                "bound_ms": times[name]["bound"][0],
+                "bound_by": times[name]["bound"][1],
+                "library_ms": times[name]["library_ms"]}
+               for name, route, source, replaces, err in rows]
+    log(f"train path: {train_ms:.3f} ms/step")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -7,8 +7,10 @@ passes ``device="cpu"``.  Each Pallas TPU kernel on a ported path is a
 hand-written Hopper kernel here (``ops/kernels/``, ``csrc/``).  The port
 imports nothing of JAX or of ``hetu_tpu``.
 
-Slice A1 (this package so far): BERT evaluation through the Executor.
-Names of later slices raise ``NotImplementedError`` (ROADMAP.md).
+Slices A1 and A2 (this package so far): BERT evaluation and the
+single-device BERT training step (autodiff, AdamW, dropout) through the
+Executor.  Names of later slices raise ``NotImplementedError``
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from .graph import (Op, PlaceholderOp, VariableOp, find_topo_sort,
                     scoped_init)
 from . import initializers as init
 from .ops import *  # noqa: F401,F403
+from .optim import AdamOptimizer, AdamWOptimizer
+from .optim import lr_scheduler
 
 __version__ = "0.1.0"
 
@@ -51,9 +55,8 @@ def _later(name, where):
     return stub
 
 
-# optimizers arrive with the training step
+# the remaining optimizers arrive with slice A3
 for _name in ("SGDOptimizer", "MomentumOptimizer", "AdaGradOptimizer",
-              "AdamOptimizer", "AdamWOptimizer", "AMSGradOptimizer",
-              "LambOptimizer"):
-    globals()[_name] = _later(_name, "slice A2 (the BERT-base training step)")
+              "AMSGradOptimizer", "LambOptimizer"):
+    globals()[_name] = _later(_name, "slice A3")
 del _name

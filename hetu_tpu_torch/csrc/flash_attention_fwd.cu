@@ -21,26 +21,33 @@
 // inputs with d <= 128.  f32 inputs, and bf16 heads wider than 128, take a
 // plain-FMA kernel that accumulates in f32 too.  No TMA, wgmma or
 // pipelining yet: tiles are loaded with 16-byte loads and a barrier.
+//
+// Attention dropout (training): with a seed pointer, each probability is
+// kept with probability keep and scaled by 1/keep after it joins the row
+// sum, so l holds the UN-dropped sums and O = dropout(softmax(S)) V, as
+// the TPU kernel computes it (flash_attention.py:170-176).  The keep bit is
+// the hash of dropout_hash.cuh on global (seed, bh, row, col), which the
+// backward kernels replay; the seed is read from device memory, so drawing
+// it costs the host no sync.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "dropout_hash.cuh"
+#include "flash_common.cuh"
+
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr float kNegBig = -1e30f;   // floor of the running max (TPU: m0)
-constexpr float kEmptyLse = 1e30f;  // lse of a row with no live key
+using namespace hetu_flash;
 
 // -------------------------------------------------------------------------
 // bf16 tensor-core kernel: 4 warps, 64 query rows per block (16 per warp),
 // K/V tiles of 64 keys in shared memory, head dim padded to D (16 | D).
 
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kThreads = 128;
+constexpr int kBM = kTile;
+constexpr int kBN = kTile;
 
 template <int D>
 constexpr size_t mma_smem_bytes() {
@@ -49,55 +56,16 @@ constexpr size_t mma_smem_bytes() {
          kBN * sizeof(float);
 }
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(const __nv_bfloat16* lo,
-                                              const __nv_bfloat16* hi) {
-  uint32_t l = *reinterpret_cast<const uint16_t*>(lo);
-  uint32_t h = *reinterpret_cast<const uint16_t*>(hi);
-  return l | (h << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [row0, row0 + 64) x columns [0, D) of a [S, d] matrix into smem,
-// in 16-byte chunks (d % 8 == 0); rows >= S and columns >= d read as zero
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int S, int d) {
-  constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < kBN * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = idx % kChunks, gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < S && c * 8 < d)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)gr * d + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c * 8) = val;
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  const float* __restrict__ mask, __nv_bfloat16* __restrict__ o,
-                  float* __restrict__ lse, int n_bh, int H, int S, int d,
-                  int causal, float scale_log2) {
+                  const float* __restrict__ mask,
+                  const int32_t* __restrict__ seed,
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  int n_bh, int H, int S, int d, int causal, float scale_log2,
+                  uint32_t keep_threshold, float inv_keep) {
   constexpr int ST = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -117,17 +85,18 @@ __global__ void __launch_bounds__(kThreads)
   const int g = lane >> 2, t = lane & 3;  // mma fragment row group / column
   const int r0 = warp * 16 + g;           // this thread's rows: r0, r0 + 8
   const int row_a = q0 + r0, row_b = row_a + 8;
+  uint32_t rk[2] = {0u, 0u};  // dropout row keys of rows row_a, row_b
+  if (seed) {
+    rk[0] = hetu_dropout::row_key((uint32_t)*seed, bh, row_a);
+    rk[1] = hetu_dropout::row_key((uint32_t)*seed, bh, row_b);
+  }
 
   load_tile<D>(sQ, q + base, q0, S, d);
   __syncthreads();
   uint32_t qa[D / 16][4];  // A fragments of this warp's 16 query rows
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    qa[kc][0] = ld32(sQ + r0 * ST + kc * 16 + 2 * t);
-    qa[kc][1] = ld32(sQ + (r0 + 8) * ST + kc * 16 + 2 * t);
-    qa[kc][2] = ld32(sQ + r0 * ST + kc * 16 + 8 + 2 * t);
-    qa[kc][3] = ld32(sQ + (r0 + 8) * ST + kc * 16 + 8 + 2 * t);
-  }
+  for (int kc = 0; kc < D / 16; ++kc)
+    load_a(qa[kc], sQ, ST, warp * 16, kc * 16, g, t);
 
   float acc[D / 8][4];
 #pragma unroll
@@ -186,9 +155,12 @@ __global__ void __launch_bounds__(kThreads)
     for (int n = 0; n < kBN / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - m[e >> 1]);
-        s[n][e] = p;
-        rsum[e >> 1] += p;
+        float p = exp2f(s[n][e] - m[e >> 1]);
+        rsum[e >> 1] += p;  // l sums the un-dropped p
+        const int col = k0 + n * 8 + 2 * t + (e & 1);
+        if (seed && !hetu_dropout::keep(rk[e >> 1], col, keep_threshold))
+          p = 0.f;
+        s[n][e] = seed ? p * inv_keep : p;
       }
     }
 #pragma unroll
@@ -254,19 +226,6 @@ constexpr int kSimtBM = 16;
 constexpr int kSimtBN = 32;
 constexpr int kRowsPerWarp = kSimtBM / (kThreads / 32);
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 template <int NC>
 constexpr size_t simt_smem_bytes() {
   // Q and K rows padded by one float against bank conflicts; V; mask
@@ -274,25 +233,14 @@ constexpr size_t simt_smem_bytes() {
           (size_t)kSimtBN * 32 * NC + kSimtBN) * sizeof(float);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ mask,
-                   T* __restrict__ o, float* __restrict__ lse, int n_bh,
-                   int H, int S, int d, int causal, float scale_log2) {
+                   const int32_t* __restrict__ seed, T* __restrict__ o,
+                   float* __restrict__ lse, int n_bh, int H, int S, int d,
+                   int causal, float scale_log2, uint32_t keep_threshold,
+                   float inv_keep) {
   constexpr int DP = 32 * NC;
   extern __shared__ __align__(16) float smem_f[];
   float* sQ = smem_f;                          // [BM][DP + 1]
@@ -314,10 +262,14 @@ __global__ void __launch_bounds__(kThreads)
   }
   float acc[kRowsPerWarp][NC];
   float m[kRowsPerWarp], l[kRowsPerWarp];
+  uint32_t rk[kRowsPerWarp];  // dropout row keys
 #pragma unroll
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     m[rr] = kNegBig;
     l[rr] = 0.f;
+    rk[rr] = seed ? hetu_dropout::row_key((uint32_t)*seed, bh,
+                                          q0 + warp * kRowsPerWarp + rr)
+                  : 0u;
 #pragma unroll
     for (int i = 0; i < NC; ++i) acc[rr][i] = 0.f;
   }
@@ -349,10 +301,13 @@ __global__ void __launch_bounds__(kThreads)
       float x = sc * scale_log2 + sMask[lane];
       if (causal && k0 + lane > q0 + rl) x = -INFINITY;
       const float m_new = fmaxf(m[rr], warp_max(x));
-      const float p = exp2f(x - m_new);
+      float p = exp2f(x - m_new);
       const float alpha = exp2f(m[rr] - m_new);
-      l[rr] = l[rr] * alpha + warp_sum(p);
+      l[rr] = l[rr] * alpha + warp_sum(p);  // un-dropped sums
       m[rr] = m_new;
+      if (seed)
+        p = hetu_dropout::keep(rk[rr], k0 + lane, keep_threshold)
+                ? p * inv_keep : 0.f;
 #pragma unroll
       for (int i = 0; i < NC; ++i) acc[rr][i] *= alpha;
       // a bounded unroll: unrolled fully, the hoisted V loads of the
@@ -383,17 +338,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// grid of n_q query tiles x n_bh (batch, head) pairs: y holds up to 65535
-// pairs, z counts the slices of that many
-dim3 bh_grid(int n_q, int n_bh) {
-  const int y = n_bh < 65535 ? n_bh : 65535;
-  return dim3(n_q, y, (n_bh + y - 1) / y);
-}
-
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       const float* mask, void* o, float* lse, int B, int H,
-                       int S, int d, int causal, float scale_log2,
+                       const float* mask, const int32_t* seed, void* o,
+                       float* lse, int B, int H, int S, int d, int causal,
+                       float scale_log2, uint32_t thr, float inv_keep,
                        cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -404,16 +353,17 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   if (grid.z > 65535) return cudaErrorInvalidValue;
   flash_fwd_mma<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), mask,
+      static_cast<const __nv_bfloat16*>(v), mask, seed,
       static_cast<__nv_bfloat16*>(o), lse, B * H, H, S, d, causal,
-      scale_log2);
+      scale_log2, thr, inv_keep);
   return cudaGetLastError();
 }
 
 template <typename T, int NC>
 cudaError_t launch_simt(const void* q, const void* k, const void* v,
-                        const float* mask, void* o, float* lse, int B, int H,
-                        int S, int d, int causal, float scale_log2,
+                        const float* mask, const int32_t* seed, void* o,
+                        float* lse, int B, int H, int S, int d, int causal,
+                        float scale_log2, uint32_t thr, float inv_keep,
                         cudaStream_t stream) {
   const size_t smem = simt_smem_bytes<NC>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -424,49 +374,86 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
   if (grid.z > 65535) return cudaErrorInvalidValue;
   flash_fwd_simt<T, NC><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(o), lse, B * H, H, S,
-      d, causal, scale_log2);
+      static_cast<const T*>(v), mask, seed, static_cast<T*>(o), lse, B * H,
+      H, S, d, causal, scale_log2, thr, inv_keep);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_simt(const void* q, const void* k, const void* v,
-                          const float* mask, void* o, float* lse, int B,
-                          int H, int S, int d, int causal, float scale_log2,
+                          const float* mask, const int32_t* seed, void* o,
+                          float* lse, int B, int H, int S, int d, int causal,
+                          float scale_log2, uint32_t thr, float inv_keep,
                           cudaStream_t st) {
-  if (d <= 32) return launch_simt<T, 1>(q, k, v, mask, o, lse, B, H, S, d, causal, scale_log2, st);
-  if (d <= 64) return launch_simt<T, 2>(q, k, v, mask, o, lse, B, H, S, d, causal, scale_log2, st);
-  if (d <= 128) return launch_simt<T, 4>(q, k, v, mask, o, lse, B, H, S, d, causal, scale_log2, st);
-  if (d <= 256) return launch_simt<T, 8>(q, k, v, mask, o, lse, B, H, S, d, causal, scale_log2, st);
-  if (d <= 512) return launch_simt<T, 16>(q, k, v, mask, o, lse, B, H, S, d, causal, scale_log2, st);
+  if (d <= 32) return launch_simt<T, 1>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
+  if (d <= 64) return launch_simt<T, 2>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
+  if (d <= 128) return launch_simt<T, 4>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
+  if (d <= 256) return launch_simt<T, 8>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
+  if (d <= 512) return launch_simt<T, 16>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
   return cudaErrorInvalidValue;
+}
+
+// the keep bits of an [n_bh, Sq, Sk] attention-probability tensor, one
+// thread per element: the counterpart of the test-only Pallas kernel that
+// extracts the TPU kernel's masks (tests/test_flash_attention.py:195)
+__global__ void dropout_keep_mask_kernel(const int32_t* __restrict__ seed,
+                                         uint8_t* __restrict__ out,
+                                         size_t total, int Sq, int Sk,
+                                         uint32_t thr) {
+  const uint32_t sd = (uint32_t)*seed;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const uint32_t col = (uint32_t)(i % Sk);
+    const size_t r = i / Sk;
+    const uint32_t row = (uint32_t)(r % Sq), bh = (uint32_t)(r / Sq);
+    out[i] = hetu_dropout::keep(hetu_dropout::row_key(sd, bh, row), col, thr);
+  }
 }
 
 }  // namespace
 
+// out: [n_bh, Sq, Sk] uint8 keep bits (1 = kept) for the dropout seed at
+// `seed` (one int32 on the device) and threshold thr.
+extern "C" int hetu_dropout_keep_mask(const int32_t* seed, uint8_t* out,
+                                      int n_bh, int Sq, int Sk, uint32_t thr,
+                                      void* stream) {
+  if (n_bh <= 0 || Sq <= 0 || Sk <= 0) return (int)cudaErrorInvalidValue;
+  const size_t total = (size_t)n_bh * Sq * Sk;
+  const size_t want = (total + 255) / 256;
+  const int blocks = (int)(want < 65536 ? want : 65536);
+  dropout_keep_mask_kernel<<<blocks, 256, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      seed, out, total, Sq, Sk, thr);
+  return (int)cudaGetLastError();
+}
+
 // q, k, v, o: [B*H, S, d] contiguous, bf16 (is_bf16) or f32; mask: [B, S]
-// f32 or null; lse: [B*H, S] f32.  Returns a cudaError_t (0 = launched).
+// f32 or null; seed: one int32 on the device, or null for no dropout (then
+// thr and inv_keep are unused); lse: [B*H, S] f32.  Returns a cudaError_t
+// (0 = launched).
 extern "C" int hetu_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, const float* mask,
-                                        void* o, float* lse, int B, int H,
-                                        int S, int d, int causal, float scale,
+                                        const int32_t* seed, void* o,
+                                        float* lse, int B, int H, int S,
+                                        int d, int causal, float scale,
+                                        uint32_t thr, float inv_keep,
                                         int is_bf16, void* stream) {
   const float scale_log2 = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || S <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   if (is_bf16 && d % 8 == 0 && d <= 128) {
     switch ((d + 15) / 16) {
-      case 1: return (int)launch_mma<16>(q, k, v, mask, o, lse, B, H, S, d, causal, scale_log2, st);
-      case 2: return (int)launch_mma<32>(q, k, v, mask, o, lse, B, H, S, d, causal, scale_log2, st);
-      case 3: return (int)launch_mma<48>(q, k, v, mask, o, lse, B, H, S, d, causal, scale_log2, st);
-      case 4: return (int)launch_mma<64>(q, k, v, mask, o, lse, B, H, S, d, causal, scale_log2, st);
-      case 5: return (int)launch_mma<80>(q, k, v, mask, o, lse, B, H, S, d, causal, scale_log2, st);
-      case 6: return (int)launch_mma<96>(q, k, v, mask, o, lse, B, H, S, d, causal, scale_log2, st);
-      case 7: return (int)launch_mma<112>(q, k, v, mask, o, lse, B, H, S, d, causal, scale_log2, st);
-      default: return (int)launch_mma<128>(q, k, v, mask, o, lse, B, H, S, d, causal, scale_log2, st);
+      case 1: return (int)launch_mma<16>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
+      case 2: return (int)launch_mma<32>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
+      case 3: return (int)launch_mma<48>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
+      case 4: return (int)launch_mma<64>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
+      case 5: return (int)launch_mma<80>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
+      case 6: return (int)launch_mma<96>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
+      case 7: return (int)launch_mma<112>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
+      default: return (int)launch_mma<128>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
     }
   }
   if (is_bf16)
-    return (int)dispatch_simt<__nv_bfloat16>(q, k, v, mask, o, lse, B, H, S, d, causal, scale_log2, st);
-  return (int)dispatch_simt<float>(q, k, v, mask, o, lse, B, H, S, d, causal, scale_log2, st);
+    return (int)dispatch_simt<__nv_bfloat16>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
+  return (int)dispatch_simt<float>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
 }

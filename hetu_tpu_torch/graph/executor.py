@@ -1,17 +1,24 @@
 """Executor: named subgraphs evaluated eagerly on one device.
 
-Counterpart of ``hetu_tpu/graph/executor.py``, inference subset.  The JAX
+Counterpart of ``hetu_tpu/graph/executor.py`` on one device.  The JAX
 executor jit-compiles each named subgraph into one XLA program; here
-``run`` walks the subgraph's topo order eagerly, under
-``torch.inference_mode()``, on an explicit device.  Mixed precision follows
-the JAX policy: with ``compute_dtype``, floating params and feeds are cast
-for the step while ``params`` keep their own dtype, and integers are never
-cast.  Updates that stateful ops record (the BERT MLM overflow counter) are
-written back into ``params``.
+``run`` walks the subgraph's topo order eagerly on an explicit device.  A
+subgraph trains, as in JAX, iff it holds an optimizer or gradient op and
+its name is not ``validate``/``inference``/``eval`` (an explicit
+``training=`` overrides): training turns dropout on.  Subgraphs that
+train or hold gradient ops run with autograd recording; the others run
+under ``torch.inference_mode()``, and what they record into ``params`` is
+cloned out of inference mode so that a later training step can use it.
+Mixed precision follows the JAX policy: with ``compute_dtype``, floating
+params and feeds are cast for the step while ``params`` keep their own
+dtype (the optimizers update these f32 masters), and integers are never
+cast.  Updates that ops record (optimizer steps, the
+BERT MLM overflow counter) are written back into ``params`` in each
+param's dtype, and each optimizer's state is kept in ``opt_state``.
 
-Training (autodiff, optimizers, guards, numerics) is slice A2 of the port;
-parallelism and the parameter server are later slices (ROADMAP.md).  Those
-arguments raise ``NotImplementedError`` here rather than being ignored.
+Guards, numerics, save/resume with RNG state, data parallelism and the
+parameter server are later slices (ROADMAP.md).  Those arguments raise
+``NotImplementedError`` here rather than being ignored.
 """
 
 from __future__ import annotations
@@ -30,14 +37,12 @@ _EVAL_NAMES = ("validate", "inference", "eval")
 # Executor keyword arguments of the JAX package that belong to later slices
 _LATER = {
     "mesh": "slice F (parallelism beyond DP)",
-    "dist_strategy": "slice A2 (data parallelism) / slice F",
-    "comm_mode": "slice A2 (data parallelism) / slice B (parameter server)",
+    "dist_strategy": "slice A3 (data parallelism) / slice F",
+    "comm_mode": "slice A3 (data parallelism) / slice B (parameter server)",
     "pipeline": "slice F (pipeline parallelism)",
     "step_guard": "slice G (resilience)",
     "numerics": "slice G (telemetry)",
     "cp_impl": "slice F (context parallelism)",
-    "rng_impl": "slice A2 (dropout in training)",
-    "donate_params": "slice A2 (training step)",
 }
 
 
@@ -91,10 +96,15 @@ class SubExecutor:
                 raise NotImplementedError(
                     f"{p.name}: parameter-server rows arrive with slice B of "
                     "the port (ROADMAP.md)")
-        # evaluation unless the caller asks otherwise; the subgraphs that
-        # train (optimizer or gradient ops) arrive with slice A2
+        self.opt_ops = [n for n in self.topo if hasattr(n, "init_state")]
+        # train/eval mode: training iff the subgraph optimizes or
+        # differentiates, unless its name marks it as evaluation (the JAX
+        # rule, hetu_tpu/graph/executor.py:50-57)
+        self.has_grads = any(hasattr(n, "_compute_with_env")
+                             for n in self.topo)
         self.training = bool(executor.config.get(
-            "training", False)) and name not in _EVAL_NAMES
+            "training", (bool(self.opt_ops) or self.has_grads)
+            and name not in _EVAL_NAMES))
         self._monitor_vars = [v for v in self.variables
                               if v.monitor is not None]
         self._monitor_interval = int(
@@ -126,11 +136,21 @@ class SubExecutor:
         bindings = {v: cast(ex.params[v.name]) for v in self.variables}
         for p, v in self._feeds(feed_dict).items():
             bindings[p] = cast(v)
-        ctx = TraceContext(generator=ex.generator, training=self.training)
-        with torch.inference_mode(not self.training):
+        ctx = TraceContext(
+            generator=ex.generator, training=self.training,
+            master_params=ex.params if ex.compute_dtype is not None
+            else None)
+        ctx.opt_state = ex.opt_state
+        with (torch.enable_grad() if self.has_grads or self.training
+              else torch.inference_mode()):
             vals = evaluate(self.eval_nodes, bindings, ctx, topo=self.topo)
-            for var, val in ctx.updates.items():
-                ex.params[var.name] = val.to(ex.params[var.name].dtype)
+        for var, val in ctx.updates.items():
+            if val.is_inference():
+                val = val.clone()
+            ex.params[var.name] = val.detach().to(ex.params[var.name].dtype)
+        ex.opt_state.update(ctx.new_opt_state)
+        vals = [v.detach() if isinstance(v, torch.Tensor) else v
+                for v in vals]
         ex._global_step += 1
         self._runs += 1
         if self._monitor_vars and (
@@ -154,7 +174,12 @@ class Executor:
     ``eval_node_dict`` may be a list (single anonymous subgraph) or a dict
     {name: eval_node_list}.  ``device=None`` means ``"cuda"`` and raises
     when no card is present; pass ``device="cpu"`` to run on the CPU.
-    ``seed`` drives variable init and the executor's ``torch.Generator``.
+    ``seed`` drives variable init and the executor's ``torch.Generator``,
+    from which dropout draws.  ``rng_impl`` is accepted for the JAX
+    package's signature (it picks a JAX PRNG there) and selects nothing:
+    the port has one generator kind.  ``donate_params`` is accepted and
+    selects nothing either: each step's updates are new tensors that
+    replace the old in ``params``, which frees them.
     """
 
     def __init__(self, eval_node_dict, ctx=None, seed=0, mesh=None,
@@ -195,6 +220,12 @@ class Executor:
             gen = torch.Generator().manual_seed(init_seed(self.seed, v.name))
             value = v.initializer(gen, v.shape, torch_dtype(v.dtype))
             self.params[v.name] = value.to(self.device)
+        # {optimizer_op_name: state}, each optimizer initialised once
+        self.opt_state = {}
+        for n in self.all_topo:
+            if hasattr(n, "init_state"):
+                self.opt_state[n.name] = n.init_state(self.params,
+                                                      self.device)
         self.subexecutor = {name: SubExecutor(name, nodes, self)
                             for name, nodes in self.eval_node_dict.items()}
 
@@ -261,6 +292,7 @@ class Executor:
         self._global_step = int(state.get("global_step", self._global_step))
 
     def close(self):
-        """Release this executor's device memory (its params); the
-        executor cannot run afterwards."""
+        """Release this executor's device memory (its params and optimizer
+        state); the executor cannot run afterwards."""
         self.params = {}
+        self.opt_state = {}

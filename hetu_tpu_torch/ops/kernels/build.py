@@ -3,8 +3,9 @@
 Each source under ``hetu_tpu_torch/csrc/`` exposes a plain C interface and
 is compiled for Hopper (``sm_90a``) into a shared library under
 ``hetu_tpu_torch/_build/``, loaded with ``ctypes``.  The library's file
-name carries a hash of the source, so an edited source is rebuilt and a
-stale library is never loaded.  A C interface keeps PyTorch's headers out
+name carries a hash of the source and of the headers beside it
+(``csrc/*.cuh``), so an edited source or header is rebuilt and a stale
+library is never loaded.  A C interface keeps PyTorch's headers out
 of the build: such a file compiles in seconds, where one including
 ``torch/extension.h`` takes minutes.
 """
@@ -39,8 +40,12 @@ def _nvcc():
 
 
 def library_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for name in [source] + headers:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
 

@@ -10,8 +10,9 @@ from .base import simple_op
 
 def _softmax_cross_entropy_sparse(y, labels, dim=-1, ignored_index=-1):
     if dim in (-1, y.dim() - 1):
-        # the fused kernel streams the vocab once with an online logsumexp;
-        # it declines (None) shapes too small to be worth it
+        # the fused kernels (SoftmaxCEFn: forward and backward) stream the
+        # vocab once each; they decline (None) shapes too small to be
+        # worth it, as in the JAX package
         from .kernels.softmax_ce import fused_softmax_ce_sparse
         out = fused_softmax_ce_sparse(y, labels, ignored_index=ignored_index)
         if out is not None:

@@ -20,8 +20,9 @@ layer_normalization_op = simple_op(_layer_norm, "layer_normalization")
 
 
 class DropoutOp(Op):
-    """Inverted dropout: the identity in evaluation.  Dropout in training
-    arrives with slice A2 of the port."""
+    """Inverted dropout: in training, keep each element with probability
+    ``keep_prob`` (a uniform draw from the executor's generator) and scale
+    it by 1/keep_prob, in x's dtype; the identity in evaluation."""
 
     def __init__(self, x, keep_prob=0.9, name=None):
         super().__init__(x, name=name)
@@ -31,9 +32,9 @@ class DropoutOp(Op):
         (x,) = input_vals
         if not ctx.training or self.keep_prob >= 1.0:
             return x
-        raise NotImplementedError(
-            "dropout in training arrives with slice A2 of the port "
-            "(ROADMAP.md)")
+        keep = torch.rand(x.shape, generator=ctx.rng_for(self),
+                          device=x.device) < self.keep_prob
+        return torch.where(keep, x / self.keep_prob, torch.zeros_like(x))
 
 
 def dropout_op(x, keep_prob=0.9, name=None):

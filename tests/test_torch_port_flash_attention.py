@@ -119,8 +119,11 @@ def test_flash_envelope_returns_none(shape, mask_shape):
 
 
 def test_flash_refuses_training_paths():
+    """The raw forward has no backward: it refuses inputs that require
+    grad (``flash_attention`` is the differentiable form), and dropout
+    without a seed tensor."""
     q = torch.zeros(1, 1, 128, 64)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="seed"):
         tfa.flash_attention_fwd(q, q, q, dropout_keep=0.9)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="flash_attention"):
         tfa.flash_attention_fwd(q.clone().requires_grad_(), q, q)

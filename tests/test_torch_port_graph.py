@@ -67,16 +67,23 @@ def test_topo_order_puts_inputs_first():
 
 
 def test_validate_dropout_is_identity_and_training_refuses():
+    """Dropout is the identity in ``validate`` and drops in training; a
+    training executor still refuses what later slices bring (the step
+    guard, slice G)."""
     x = pt.placeholder_op("x", (3, 5))
     y = pt.dropout_op(x, keep_prob=0.5)
-    X = np.arange(15, dtype=np.float32).reshape(3, 5)
+    X = np.arange(1, 16, dtype=np.float32).reshape(3, 5)
     ex = pt.Executor({"validate": [y]}, device="cpu")
     (out,) = ex.run("validate", feed_dict={x: X},
                     convert_to_numpy_ret_vals=True)
     np.testing.assert_array_equal(out, X)
     train = pt.Executor({"train": [y]}, device="cpu", training=True)
-    with pytest.raises(NotImplementedError, match="slice A2"):
-        train.run("train", feed_dict={x: X})
+    (out,) = train.run("train", feed_dict={x: X},
+                       convert_to_numpy_ret_vals=True)
+    assert np.all((out == 0) | (out == 2 * X)) and np.any(out == 0)
+    with pytest.raises(NotImplementedError, match="slice G"):
+        pt.Executor({"train": [y]}, device="cpu", training=True,
+                    step_guard=object())
 
 
 class _CountOp(pt.Op):
@@ -160,10 +167,13 @@ def test_later_slices_raise(kwargs):
 
 
 def test_training_names_raise():
-    with pytest.raises(NotImplementedError, match="slice A2"):
-        pt.AdamWOptimizer(learning_rate=1e-4)
-    with pytest.raises(NotImplementedError, match="slice A2"):
-        pt.gradients(None, [])
+    """The optimizers of slice A3 and gradients with respect to interior
+    nodes (slice F) raise, naming their slice."""
+    with pytest.raises(NotImplementedError, match="slice A3"):
+        pt.SGDOptimizer(learning_rate=1e-4)
+    x = pt.placeholder_op("x", (2,))
+    with pytest.raises(NotImplementedError, match="slice F"):
+        pt.gradients(pt.reduce_mean_op(x * 2.0), [x])
 
 
 def test_load_state_dict_roundtrip_and_shape_check():

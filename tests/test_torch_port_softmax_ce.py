@@ -73,6 +73,8 @@ def test_ce_gate_declines_small_shapes(N, V):
 
 
 def test_ce_refuses_backward():
+    """The raw forward has no backward: it refuses logits that require
+    grad (``SoftmaxCEFn`` is the differentiable form)."""
     x = torch.zeros(8, 1024, requires_grad=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="SoftmaxCEFn"):
         tce.softmax_ce_fwd(x, torch.zeros(8, dtype=torch.int32))
