@@ -15,16 +15,20 @@ of the largest gradient of the model (the same arithmetic in another
 summation order; the atol covers entries that cancel to near zero, such as
 the attention key biases, whose gradient is zero in exact arithmetic
 because softmax ignores a constant added to a row); params after 3 steps
-atol 1e-5, except the key biases, held to 6 lr: Adam moves an entry by
-~lr whatever its gradient's size, so noise-level gradients of either sign
-move the two packages' key biases apart by up to 2 lr per step.  bf16
-compute over f32
+atol 1e-5, and each param's change over the 3 steps within 1e-4 of JAX's
+change, relative, in the 2-norm (readings up to 8.7e-6).  The key biases
+are held to atol 6 lr only: Adam moves an entry by ~lr whatever its
+gradient's size, so noise-level gradients of either sign move the two
+packages' key biases apart by up to 2 lr per step.  bf16 compute over f32
 masters: both packages round every activation to bf16 (8 bits) at
 different places (XLA fuses, PyTorch rounds each op's output), so the
-loss is held to rtol 2e-3, and params after 3 steps to atol 6e-3
-(6 lr: where a bf16 gradient is near zero the two packages may see it
-with opposite signs, and Adam moves such an entry by ~lr either way, so
-the two updates part by up to 2 lr per step).  Both tests check that
+loss is held to rtol 2e-3, and each param's change over the 3 steps
+(param minus its init) to within 0.3 of JAX's change, relative, in the
+2-norm (readings: median 0.038, largest 0.19, on a layer-norm bias
+whose gradient is small; where a bf16 gradient is near zero the two
+packages may see it with opposite signs).  A param left unchanged reads
+1 and an update of the wrong sign 2, so both fail.  The key biases, whose
+change is noise, are held to atol 6 lr as in f32.  Both tests check that
 the MLM overflow counter grows by the excess once per step.
 """
 
@@ -98,16 +102,17 @@ def _overflow_name(tex):
     return name
 
 
-def _atol(name, param_atol):
+def _is_key_bias(name):
     # the key biases' exact gradient is zero (see the module docstring)
-    return max(param_atol, 6 * LR) if name.endswith("_attn_k_bias") \
-        else param_atol
+    return name.endswith("_attn_k_bias")
 
 
-def _train_and_compare(jex, tex, xs, loss_rtol, param_atol):
+def _train_and_compare(jex, tex, xs, loss_rtol, param_atol, delta_rtol):
     """3 train steps, the last batch masking more positions than the
-    128-row bucket; compares losses, params and the overflow counter."""
+    128-row bucket; compares losses, params, each param's change from its
+    init and the overflow counter."""
     counter = _overflow_name(tex)
+    init = {v.name: tex.params[v.name].numpy().copy() for v in xs}
     batches = [_batch(1), _batch(2), _batch(3, mask_rate=0.7)]
     excess = [max(0, int((b["mlm_labels"] >= 0).sum()) - 128)
               for b in batches]
@@ -125,10 +130,16 @@ def _train_and_compare(jex, tex, xs, loss_rtol, param_atol):
         assert int(np.asarray(jex.params[counter])) == sum(excess[:step + 1])
     for v in xs:
         assert tex.params[v.name].dtype == torch.float32
-        np.testing.assert_allclose(tex.params[v.name].numpy(),
-                                   np.asarray(jex.params[v.name]),
-                                   atol=_atol(v.name, param_atol),
-                                   err_msg=v.name)
+        got = tex.params[v.name].numpy()
+        want = np.asarray(jex.params[v.name])
+        if _is_key_bias(v.name):
+            np.testing.assert_allclose(got, want, atol=6 * LR, err_msg=v.name)
+            continue
+        if param_atol is not None:
+            np.testing.assert_allclose(got, want, atol=param_atol,
+                                       err_msg=v.name)
+        err = np.linalg.norm(got - want) / np.linalg.norm(want - init[v.name])
+        assert err <= delta_rtol, (v.name, err)
 
 
 def test_bert_train_matches_jax_f32(graphs):
@@ -141,9 +152,11 @@ def test_bert_train_matches_jax_f32(graphs):
     for v, a, b in zip(xs, got[1:], want[1:]):
         np.testing.assert_allclose(a, np.asarray(b), rtol=1e-4,
                                    atol=1e-6 * scale, err_msg=v.name)
-    _train_and_compare(jex, tex, xs, loss_rtol=1e-5, param_atol=1e-5)
+    _train_and_compare(jex, tex, xs, loss_rtol=1e-5, param_atol=1e-5,
+                       delta_rtol=1e-4)
 
 
 def test_bert_train_matches_jax_bf16(graphs):
     jex, tex, xs = _executors(graphs, torch.bfloat16)
-    _train_and_compare(jex, tex, xs, loss_rtol=2e-3, param_atol=6 * LR)
+    _train_and_compare(jex, tex, xs, loss_rtol=2e-3, param_atol=None,
+                       delta_rtol=0.3)
