@@ -7,15 +7,20 @@ Phases, each fatal on failure (exit 1, no result lines):
 
 1. Card and build: the card's name and power limit, and the build of every
    kernel of the paths from the sources in this checkout: one nvcc per CUDA
-   source (flash-attention forward with dropout; dQ and dK/dV backward),
-   all started together, then Triton's compiler for the softmax-CE forward
-   and backward.
+   source (flash-attention forward with dropout; dQ and dK/dV backward; the
+   packed-gradient write), all started together, then Triton's compiler for
+   the softmax-CE forward and backward.
 2. Kernels against their plain PyTorch versions on the card, on the same
    inputs: the dropout keep bits bitwise; the flash forward (with and
    without dropout), dQ, dK/dV and the CE forward and backward at the main
    paths' shapes and at ragged, causal, fully-masked, wide-head and f32
-   ones.  Each check prints its max |error| beside its stated tolerance.
-3. Main paths, each driven with the five launch counters set to 0 just
+   ones; ``pack_write`` at the W&D shapes (uniform, Zipf-skewed, negative
+   and tail-line ids, Criteo's table, no ids), bitwise on lines with one
+   contributor and against itself across two runs; the packed lookup's
+   forward on the card against the CPU, with a NaN and an Inf row and
+   negative ids.  Each check prints its max |error| beside its stated
+   tolerance.
+3. Main paths, each driven with the six launch counters set to 0 just
    before its timed steps and read just after:
    a. BERT-base (vocab 30522, hidden 768, 12 layers, 12 heads, FFN 3072,
       seq 512, MLM bucket 0.25 -> 8192 rows) evaluated through
@@ -28,13 +33,22 @@ Phases, each fatal on failure (exit 1, no result lines):
       compute_dtype=bfloat16)`` over f32 master params, 3 warm-up and
       ``--steps`` timed steps: per step 12 flash forward, 12 dQ, 12 dK/dV,
       1 CE forward and 1 CE backward launches, every loss finite.
+   c. Wide&Deep on the packed embedding table (26 sparse fields of dim 16,
+      13 dense, deep (256, 256, 256)) trained through ``Executor({"train":
+      [loss, AdamOptimizer(0.01).minimize(loss)], "predict": [logit]})``
+      at batch 128, f32, at bench_wdl's 337,000 rows and at Criteo's
+      33,762,577 (a 2.16 GB table updated whole by dense Adam each step):
+      3 warm-up and ``--steps`` timed steps, 1 ``pack_write`` launch per
+      step, every loss finite, then a ``predict`` run that changes no
+      param.  Then one step each of DeepFM, DCN and DLRM on the packed
+      table at 337,000 rows: a finite loss and 1 ``pack_write`` launch.
    Each path's step is broken down by kernel class under torch.profiler.
    Then each kernel is timed at the paths' shapes beside its bound, its
    plain version and one PyTorch library call (a yardstick only; the port
    never calls it), and one f32 training step of BERT (batch 2, 2 layers,
-   full widths, dropout off) runs from the same params on the card
-   (kernels) and on the CPU (plain versions): loss, every gradient and
-   every updated param are compared.
+   full widths, dropout off) and one of W&D (337,000 rows) run from the
+   same params on the card (kernels) and on the CPU (plain versions):
+   loss, every gradient and every updated param are compared.
 4. Result: a {"kernels": [...]} JSON line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
@@ -60,7 +74,11 @@ import torch.nn.functional as F
 # tensor-core (or f32 vector) rate of their type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-CUDA_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu")
+CUDA_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
+                "pack_write.cu")
+WDL_ROWS = 337000         # bench_wdl's table (bench.py:567)
+CRITEO_ROWS = 33762577    # Criteo's features (hetu_tpu/datasets/criteo.py)
+CTR_BATCH = 128
 
 failures = []
 
@@ -103,6 +121,24 @@ def time_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=100):
+    """Device time of ``fn`` in ms per call: the time of the kernels it
+    launches, summed under torch.profiler over ``iters`` calls.  For calls
+    whose launch costs the host longer than their kernels take the card,
+    where back-to-back CUDA events time the host."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / iters / 1e3
 
 
 def bound(n_bytes, ops, dtype):
@@ -339,6 +375,102 @@ def ce_checks(rng, ce):
     return errs
 
 
+def ctr_ids(rng, kind, m, n):
+    """m ids in [0, n) of one kind: uniform, Zipf-skewed (s = 1.05, a few
+    ids take most of the draws), 30% negative (padding), or half of them
+    on the last id."""
+    ids = rng.integers(0, n, m)
+    if kind == "zipf":
+        ids = np.minimum(rng.zipf(1.05, m) - 1, n - 1)
+    elif kind == "negative":
+        ids[rng.random(m) < 0.3] = -1
+    elif kind == "tail":
+        ids[rng.random(m) < 0.5] = n - 1
+    return ids.astype(np.int32)
+
+
+def pack_write_checks(rng, sd):
+    """Phase 2e: the pack_write kernel against ``pack_write_plain`` on the
+    card (scatter-add with atomics) and on the CPU (sequential); returns
+    the max |error| at the main path's shape."""
+    p337 = sd.packed_rows(WDL_ROWS, 16)
+    cases = (("uniform (main path)", "uniform", 3328, p337),
+             ("zipf", "zipf", 3328, p337), ("zipf", "zipf", 65536, p337),
+             ("30% negative", "negative", 3328, p337),
+             # 337,001 rows: the last line holds one row
+             ("tail line", "tail", 3328, sd.packed_rows(WDL_ROWS + 1, 16)),
+             ("criteo table", "uniform", 3328,
+              sd.packed_rows(CRITEO_ROWS, 16)),
+             ("no ids", "uniform", 0, p337))
+    main_err = None
+    for label, kind, m, p_rows in cases:
+        ids_np = ctr_ids(rng, kind, m, p_rows)
+        ids = torch.from_numpy(ids_np).cuda()
+        lines = randn(rng, (m, 128), torch.float32)
+        got = sd.pack_write(ids, lines, p_rows)
+        again = sd.pack_write(ids, lines, p_rows)
+        plain = sd.pack_write_plain(ids, lines, p_rows)
+        abs_sum = sd.pack_write_plain(ids, lines.abs(), p_rows)
+        torch.cuda.synchronize()
+        name = f"pack_write {label} M={m} p_rows={p_rows}"
+        counts = torch.from_numpy(np.bincount(
+            ids_np[ids_np >= 0], minlength=p_rows)[:p_rows]).cuda()
+        single, merged = counts == 1, counts > 1
+        # both sides add the same k terms, each in its own order: two
+        # recursive sums differ by at most 2 k 2^-24 sum|term|
+        diff = (got - plain).abs()
+        tol = 2.0 * counts[:, None].float() * 2.0 ** -24 * abs_sum
+        err = diff.max().item() if m else 0.0
+        log(f"check {name}: {int(single.sum())} single and "
+            f"{int(merged.sum())} merged lines (largest run "
+            f"{int(counts.max())}), max_abs_err={err:.3e} vs the card's "
+            "index_add_, tol 0 on single lines and 2*k*2^-24*sum|term| on "
+            "merged ones (atomics add in another order)")
+        require(f"{name}: two runs bitwise equal", torch.equal(got, again))
+        require(f"{name}: single lines bitwise equal to plain",
+                torch.equal(got[single], plain[single]))
+        require(f"{name}: merged lines within tolerance",
+                bool((diff <= tol).all()))
+        require(f"{name}: lines with no id stay zero",
+                bool((got[counts == 0] == 0).all()))
+        cpu = sd.pack_write_plain(ids.cpu(), lines.cpu(), p_rows)
+        n_diff = int((got.cpu() != cpu).any(dim=1).sum())
+        require(f"{name}: bitwise equal to the CPU's sequential index_add_ "
+                f"(the stable sort keeps each run in input order; "
+                f"{n_diff} lines differ)", n_diff == 0)
+        if main_err is None:
+            main_err = err
+        del got, again, plain, abs_sum, diff, tol, cpu
+    return main_err
+
+
+def packed_lookup_checks(rng, sd):
+    """Phase 2f: the packed lookup's forward on the card against the CPU,
+    bitwise, with a NaN and an Inf row sharing lines with looked-up rows
+    and with negative ids (clamped to row 0)."""
+    rows, dim = WDL_ROWS + 1, 16
+    table = randn(rng, (sd.packed_rows(rows, dim), 128), torch.float32)
+    table[5, 3 * dim + 2] = float("nan")   # logical row 43
+    table[9, 7 * dim:] = float("inf")      # logical row 79
+    ids = torch.from_numpy(rng.integers(0, rows, (CTR_BATCH, 26)).astype(
+        np.int32))
+    ids[(ids == 43) | (ids == 79)] = 0
+    ids[0, :5] = torch.tensor([42, 43, 44, 78, 79])
+    ids[1, :3] = torch.tensor([-1, -7, rows - 1])
+    got = sd.packed_lookup(table, ids.cuda(), dim)
+    torch.cuda.synchronize()
+    want = sd.packed_lookup(table.cpu(), ids, dim)
+    same = torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    bad = ~torch.isfinite(got.cpu()).all(dim=-1)
+    require("packed_lookup forward [128,26] dim 16: card bitwise equal to "
+            "the CPU", same)
+    require("packed_lookup: only the NaN and Inf rows themselves are "
+            "non-finite", bad.nonzero().tolist() == [[0, 1], [0, 4]])
+    require("packed_lookup: negative ids return logical row 0",
+            torch.equal(got[1, :2].cpu(),
+                        table[0, :dim].cpu().expand(2, dim)))
+
+
 # -- phase 3 -----------------------------------------------------------------
 
 def build_bert(ht, models, B, S, L, dropout=0.1):
@@ -375,23 +507,32 @@ def bert_batch(rng, B, S, device):
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
-def counters(fa, ce):
-    """The five launch counters of the paths' kernels."""
+def counters(fa, ce, sd):
+    """The six launch counters of the paths' kernels."""
     return {"flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
             "softmax_ce_fwd": ce.softmax_ce_fwd,
-            "softmax_ce_bwd": ce.softmax_ce_bwd}
+            "softmax_ce_bwd": ce.softmax_ce_bwd,
+            "pack_write": sd.pack_write_kernel}
 
 
-def run_path(label, step, fa, ce, steps, B, expect):
+def expect_launches(**per_run):
+    """Expected launches of every counter: the named ones, 0 for the rest."""
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv", "softmax_ce_fwd", "softmax_ce_bwd",
+             "pack_write")
+    return {name: per_run.get(name, 0) for name in names}
+
+
+def run_path(label, step, fns, steps, B, expect):
     """3 warm-up steps, then ``steps`` timed steps with the launch counters
     zeroed just before and read just after; returns (losses of every step,
     ms/step, launches)."""
     losses = [step() for _ in range(3)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fns = counters(fa, ce)
+    resident = torch.cuda.memory_allocated()
     for fn in fns.values():
         fn.launches = 0
     start = torch.cuda.Event(enable_timing=True)
@@ -404,9 +545,11 @@ def run_path(label, step, fa, ce, steps, B, expect):
     launches = {name: fn.launches for name, fn in fns.items()}
     ms = start.elapsed_time(end) / steps
     losses = [float(v) for v in losses]
-    log(f"{label}: {ms:.3f} ms/step, {B * 1000.0 / ms:.1f} samples/s, peak "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-        f"launches {launches} over {steps} steps")
+    log(f"{label}: {ms:.3f} ms/step, {1000.0 / ms:.2f} steps/s, "
+        f"{B * 1000.0 / ms:.1f} samples/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (resident "
+        f"between steps {resident / 2**30:.2f} GiB), launches {launches} "
+        f"over {steps} steps")
     log(f"{label}: losses {' '.join(f'{v:.6f}' for v in losses)}")
     require(f"{label}: {len(losses)} losses finite",
             all(math.isfinite(v) for v in losses))
@@ -436,9 +579,12 @@ def profile_steps(label, step, steps=2, top=12):
         f"ms/step wall (traced), device busy {busy_us / steps / 1e3:.3f} "
         f"ms/step, idle share {max(0.0, 1 - busy_us / wall_us):.3f}, "
         f"{sum(e.count for e in kernels) // steps} kernel launches/step")
-    # kernel classes by name: the five kernels, cuBLAS GEMMs, reductions
-    # (layer-norm moments, means, sums), copies and casts, other elementwise
-    classes = (("flash_attention_fwd", ("flash_fwd",)),
+    # kernel classes by name: the six kernels, the id sort, cuBLAS GEMMs,
+    # reductions (layer-norm moments, means, sums), copies and casts, other
+    # elementwise
+    classes = (("pack_write", ("pack_write_kernel",)),
+               ("sort (cub radix)", ("Radix", "radix")),
+               ("flash_attention_fwd", ("flash_fwd",)),
                ("flash_attention_bwd_dq", ("flash_bwd_dq",)),
                ("flash_attention_bwd_dkv", ("flash_bwd_dkv",)),
                ("softmax_ce_fwd", ("_ce_fwd_kernel",)),
@@ -607,6 +753,214 @@ def cross_device(ht, models, rng, seed):
             err <= 2e-4)
 
 
+def build_ctr(ht, models, cls, rows):
+    """A CTR model on the packed table at batch 128 (examples/ctr
+    train_ctr.py ``build()``): returns (model, loss, logit, placeholders)."""
+    ph = ht.placeholder_op
+    feeds = (ph("dense", (CTR_BATCH, 13)),
+             ph("sparse", (CTR_BATCH, 26), dtype=np.int32),
+             ph("labels", (CTR_BATCH,)))
+    model = cls(rows, embedding_dim=16, packed_embedding=True)
+    return model, model.loss(*feeds), model(*feeds[:2]), feeds
+
+
+def ctr_batch(rng, rows, feeds, device):
+    """Dense features, uniform sparse ids and 0/1 labels, as bench_wdl
+    draws them, keyed by placeholder."""
+    arrays = (rng.standard_normal((CTR_BATCH, 13)).astype(np.float32),
+              rng.integers(0, rows, (CTR_BATCH, 26)).astype(np.int32),
+              rng.integers(0, 2, CTR_BATCH).astype(np.float32))
+    return {p: torch.from_numpy(a).to(device) for p, a in zip(feeds, arrays)}
+
+
+def ctr_executor(ht, models, cls, rng, rows, seed):
+    """``Executor({"train": [loss, Adam(0.01).minimize(loss)], "predict":
+    [logit]})`` on the card, its feeds on the card, and a step that
+    returns the loss."""
+    model, loss, logit, feeds = build_ctr(ht, models, cls, rows)
+    t0 = time.perf_counter()
+    ex = ht.Executor({"train": [loss, ht.AdamOptimizer(0.01).minimize(loss)],
+                      "predict": [logit]}, device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    table = ex.params[model.emb.table.name]
+    log(f"{cls.__name__} packed: {rows} rows -> table "
+        f"{list(table.shape)} f32 ({table.numel() * 4 / 1e9:.2f} GB), "
+        f"{sum(p.numel() for p in ex.params.values())} params, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    feed = ctr_batch(rng, rows, feeds, "cuda")
+
+    def step():
+        val, none = ex.run("train", feed_dict=feed)
+        if none is not None:
+            raise RuntimeError("run('train') must return [loss, None]")
+        return val
+    return ex, feed, step
+
+
+def ctr_paths(ht, models, fns, rng, steps, seed):
+    """Phase 3c: W&D packed at both table sizes, then one step each of
+    DeepFM, DCN and DLRM; returns {rows: (ms/step, launches)}."""
+    out = {}
+    for rows in (WDL_ROWS, CRITEO_ROWS):
+        ex, feed, step = ctr_executor(ht, models, models.WDL, rng, rows, seed)
+        label = f"wdl path {rows} rows"
+        _, ms, launches = run_path(label, step, fns, steps, CTR_BATCH,
+                                   expect_launches(pack_write=steps))
+        out[rows] = ms, launches
+        profile_steps(label, step, steps=2)
+        params, state = dict(ex.params), dict(ex.opt_state)
+        (logit,) = ex.run("predict", feed_dict=feed)
+        torch.cuda.synchronize()
+        require(f"{label}: predict gives {CTR_BATCH} finite logits and "
+                "changes no param nor optimizer state",
+                tuple(logit.shape) == (CTR_BATCH,)
+                and bool(torch.isfinite(logit).all())
+                and all(ex.params[k] is v for k, v in params.items())
+                and all(ex.opt_state[k] is v for k, v in state.items()))
+        ex.close()
+        del ex, feed, step, params, state
+        torch.cuda.empty_cache()
+    for cls in (models.DeepFM, models.DCN, models.DLRM):
+        ex, _, step = ctr_executor(ht, models, cls, rng, WDL_ROWS, seed)
+        for fn in fns.values():
+            fn.launches = 0
+        loss = float(step())
+        launches = {name: fn.launches for name, fn in fns.items()}
+        log(f"{cls.__name__} packed {WDL_ROWS} rows: one step, loss "
+            f"{loss:.6f}, launches {launches}")
+        require(f"{cls.__name__}: finite loss and 1 pack_write launch",
+                math.isfinite(loss)
+                and launches == expect_launches(pack_write=1))
+        ex.close()
+        del ex, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def pack_write_times(rng, sd):
+    """pack_write at the main path's M = 3328 for both tables: the kernel
+    alone, the whole function (sort + zero fill + kernel) and its parts,
+    the plain version, and ``index_add_`` alone and after a zero fill.
+    Each is timed on the card's clock (``device_ms``; a launch here costs
+    the host more than the kernel takes the card) and, for the whole
+    calls, also back to back with CUDA events (the rate the host
+    sustains)."""
+    out = {}
+    m = CTR_BATCH * 26
+    for rows in (WDL_ROWS, CRITEO_ROWS):
+        p_rows = sd.packed_rows(rows, 16)
+        ids = torch.from_numpy(ctr_ids(rng, "uniform", m, p_rows)).cuda()
+        lines = torch.randn(m, 128, device="cuda")
+        ids_sorted, order = torch.sort(ids, stable=True)
+        buf = torch.zeros(p_rows, 128, device="cuda")
+        ids64 = ids.long()
+        unique = int(ids.unique().numel())
+        calls = dict(
+            ms=lambda: sd.pack_write_kernel(ids_sorted, order, lines, buf),
+            fn_ms=lambda: sd.pack_write(ids, lines, p_rows),
+            sort_ms=lambda: torch.sort(ids, stable=True),
+            zeros_ms=lambda: torch.zeros(p_rows, 128, device="cuda"),
+            plain_ms=lambda: sd.pack_write_plain(ids, lines, p_rows),
+            library_ms=lambda: buf.index_add_(0, ids64, lines),
+            library_fn_ms=lambda: torch.zeros(
+                p_rows, 128, device="cuda").index_add_(0, ids64, lines))
+        t = {key: device_ms(fn) for key, fn in calls.items()}
+        events = {key: time_ms(calls[key], 50)
+                  for key in ("ms", "fn_ms", "plain_ms", "library_ms")}
+        t.update(
+            # read each id and line once, write each unique line once;
+            # one f32 add per lane of each line
+            bound=bound(m * (4 + 512) + unique * 512, m * 128,
+                        torch.float32),
+            fn_bound=bound(m * (4 + 512) + p_rows * 512, m * 128,
+                           torch.float32))
+        log(f"kernel pack_write M={m} p_rows={p_rows} ({unique} unique "
+            f"lines), device time: kernel {t['ms']:.4f} ms, bound "
+            f"{t['bound'][0]:.4f} ms ({t['bound'][1]}); whole function "
+            f"{t['fn_ms']:.4f} ms (sort {t['sort_ms']:.4f}, zero fill "
+            f"{t['zeros_ms']:.4f}), bound {t['fn_bound'][0]:.4f} ms; plain "
+            f"{t['plain_ms']:.4f} ms; index_add_ {t['library_ms']:.4f} ms, "
+            f"zero fill + index_add_ {t['library_fn_ms']:.4f} ms")
+        log(f"kernel pack_write M={m} p_rows={p_rows}, back-to-back calls "
+            f"(CUDA events): kernel {events['ms']:.4f} ms, whole function "
+            f"{events['fn_ms']:.4f} ms, plain {events['plain_ms']:.4f} ms, "
+            f"index_add_ {events['library_ms']:.4f} ms")
+        require(f"pack_write timings at p_rows={p_rows} saw device time",
+                min(t[k] for k in calls) > 0)
+        out[rows] = t
+        del buf
+    # skew: one warp sums each run, so a hot id's run is the kernel's tail
+    p_rows = sd.packed_rows(WDL_ROWS, 16)
+    for m in (3328, 65536):
+        ids = torch.from_numpy(ctr_ids(rng, "zipf", m, p_rows)).cuda()
+        lines = torch.randn(m, 128, device="cuda")
+        ids_sorted, order = torch.sort(ids, stable=True)
+        buf = torch.zeros(p_rows, 128, device="cuda")
+        ids64 = ids.long()
+        run = int(torch.bincount(ids).max())
+        t_k = device_ms(lambda: sd.pack_write_kernel(ids_sorted, order, lines,
+                                                     buf))
+        t_lib = device_ms(lambda: buf.index_add_(0, ids64, lines))
+        log(f"kernel pack_write zipf s=1.05 M={m} p_rows={p_rows} (largest "
+            f"run {run}), device time: kernel {t_k:.4f} ms, index_add_ "
+            f"{t_lib:.4f} ms")
+    torch.cuda.empty_cache()
+    return out
+
+
+def cross_device_ctr(ht, models, rng, seed):
+    """One f32 W&D training step (packed table, 337,000 rows) from the same
+    params on the card (pack_write kernel) and on the CPU (plain)."""
+    model, loss, _, feeds = build_ctr(ht, models, models.WDL, WDL_ROWS)
+    xs = ht.graph_variables([loss], trainable_only=True)
+    grads = ht.gradients(loss, xs)
+    train_op = ht.AdamOptimizer(0.01).apply_gradients(list(zip(grads, xs)))
+    nodes = {"train": [loss, train_op, *grads]}
+    ex_gpu = ht.Executor(nodes, device="cuda", seed=seed + 3)
+    ex_cpu = ht.Executor(nodes, device="cpu", seed=seed + 4)
+    ex_cpu.load_state_dict(ex_gpu.state_dict())
+    init = {k: v.cpu() for k, v in ex_cpu.params.items()}
+    feed = ctr_batch(rng, WDL_ROWS, feeds, "cpu")
+    out_gpu = ex_gpu.run("train", feed_dict=feed)
+    out_cpu = ex_cpu.run("train", feed_dict=feed)
+    torch.cuda.synchronize()
+    check("cross-device f32 W&D train loss (card kernel vs CPU plain)",
+          out_gpu[0].cpu(), out_cpu[0], 1e-5,
+          "f32 on both sides; the 429-wide products and the mean over 128 "
+          "sum in another order")
+    scale = max(g.abs().max().item() for g in out_cpu[2:])
+    bad = [x.name for x, g_gpu, g_cpu in zip(xs, out_gpu[2:], out_cpu[2:])
+           if not ((g_gpu.cpu() - g_cpu).abs() - 1e-3 * g_cpu.abs()).max()
+           .item() <= 1e-5 * scale]
+    worst = max((g_gpu.cpu() - g_cpu).abs().max().item()
+                for g_gpu, g_cpu in zip(out_gpu[2:], out_cpu[2:]))
+    require(f"cross-device f32 W&D gradients of {len(xs)} params, the "
+            f"packed table's among them: max_abs_err={worst:.3e} "
+            f"tol=1e-5*{scale:.3e} + 1e-3*|g| (f32 on both sides; the "
+            "products' sums run in another order) "
+            f"{'bad: ' + str(bad) if bad else ''}", not bad)
+    # Adam's first step moves an entry by lr*g/(|g|+eps), ~lr: compare each
+    # param's change; untouched table lines have a zero gradient on both
+    # sides and must not move at all
+    errs = {}
+    for name, before in init.items():
+        change_cpu = ex_cpu.params[name] - before
+        change_gpu = ex_gpu.params[name].cpu() - before
+        errs[name] = ((change_gpu - change_cpu).norm()
+                      / change_cpu.norm()).item()
+    name = max(errs, key=errs.get)
+    require(f"cross-device W&D params after one Adam step: worst change "
+            f"error {errs[name]:.3e} ({name}) in the 2-norm, relative, "
+            "tol 1e-4 (f32 update from gradients within the tolerance "
+            "above)", errs[name] <= 1e-4)
+    table = model.emb.table.name
+    touched = torch.zeros(init[table].shape[0], dtype=torch.bool)
+    touched[(feed[feeds[1]].reshape(-1).long() // 8)] = True
+    require("cross-device W&D: untouched table lines unchanged on the card",
+            torch.equal(ex_gpu.params[table].cpu()[~touched],
+                        init[table][~touched]))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -621,6 +975,7 @@ def main():
     from hetu_tpu_torch.ops.kernels import build
     from hetu_tpu_torch.ops.kernels import flash_attention as fa
     from hetu_tpu_torch.ops.kernels import softmax_ce as ce
+    from hetu_tpu_torch.ops.kernels import sparse_densify as sd
 
     # -- phase 1: card and build -------------------------------------------
     smi = subprocess.run(
@@ -641,12 +996,15 @@ def main():
     fwd_err = flash_fwd_checks(rng, fa)
     bwd_err = flash_bwd_checks(rng, fa)
     ce_err, ce_bwd_err = ce_checks(rng, ce)
+    pw_err = pack_write_checks(rng, sd)
+    packed_lookup_checks(rng, sd)
     torch.cuda.empty_cache()
     if failures:
         log(f"FAILED checks: {failures}")
         return 1
 
     # -- phase 3: the main paths --------------------------------------------
+    fns = counters(fa, ce, sd)
     B, S, L = 64, 512, 12
     steps = args.steps
     loss = build_bert(ht, models, B, S, L)
@@ -659,14 +1017,14 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     feed = bert_batch(rng, B, S, "cuda")
     eval_step = lambda: ex.run("validate", feed_dict=feed)[0]  # noqa: E731
-    run_path("eval path", eval_step, fa, ce, steps, B,
-             {"flash_attention_fwd": L * steps, "flash_attention_bwd_dq": 0,
-              "flash_attention_bwd_dkv": 0, "softmax_ce_fwd": steps,
-              "softmax_ce_bwd": 0})
+    run_path("eval path", eval_step, fns, steps, B,
+             expect_launches(flash_attention_fwd=L * steps,
+                             softmax_ce_fwd=steps))
     if failures:
         log(f"FAILED: {failures}")
         return 1
     profile_steps("eval path", eval_step)
+    ex.close()  # frees params now: the executor is in a reference cycle
     del ex, eval_step
     torch.cuda.empty_cache()
 
@@ -689,20 +1047,29 @@ def main():
         return val
 
     _, train_ms, train_launches = run_path(
-        "train path", train_step, fa, ce, steps, B,
-        {"flash_attention_fwd": L * steps, "flash_attention_bwd_dq": L * steps,
-         "flash_attention_bwd_dkv": L * steps, "softmax_ce_fwd": steps,
-         "softmax_ce_bwd": steps})
+        "train path", train_step, fns, steps, B,
+        expect_launches(flash_attention_fwd=L * steps,
+                        flash_attention_bwd_dq=L * steps,
+                        flash_attention_bwd_dkv=L * steps,
+                        softmax_ce_fwd=steps, softmax_ce_bwd=steps))
     if failures:
         log(f"FAILED: {failures}")
         return 1
     profile_steps("train path", train_step, steps=1)
+    ex.close()
     del ex, feed, train_step
     torch.cuda.empty_cache()
 
+    ctr = ctr_paths(ht, models, fns, rng, steps, args.seed)
+    if failures:
+        log(f"FAILED: {failures}")
+        return 1
+
     times = kernel_times(rng, fa, ce, B, S)
     torch.cuda.empty_cache()
+    pw_times = pack_write_times(rng, sd)
     cross_device(ht, models, rng, args.seed)
+    cross_device_ctr(ht, models, rng, args.seed)
     if failures:
         log(f"FAILED: {failures}")
         return 1
@@ -722,16 +1089,24 @@ def main():
          "hetu_tpu/ops/pallas/softmax_ce.py:109", ce_err),
         ("softmax_ce_bwd", "triton", src + "ops/kernels/softmax_ce.py",
          "hetu_tpu/ops/pallas/softmax_ce.py:140", ce_bwd_err),
+        ("pack_write", "cuda", src + "csrc/pack_write.cu",
+         "hetu_tpu/ops/pallas/sparse_densify.py:152", pw_err),
     ]
+    # launches: each kernel's own training path (BERT, or W&D at 337,000
+    # rows for pack_write)
+    launches = dict(train_launches, pack_write=ctr[WDL_ROWS][1]["pack_write"])
+    times["pack_write"] = pw_times[WDL_ROWS]
     kernels = [{"name": name, "route": route, "source": source,
-                "replaces": replaces, "launches": train_launches[name],
+                "replaces": replaces, "launches": launches[name],
                 "max_abs_err": err, "ms": times[name]["ms"],
                 "plain_ms": times[name]["plain_ms"],
                 "bound_ms": times[name]["bound"][0],
                 "bound_by": times[name]["bound"][1],
                 "library_ms": times[name]["library_ms"]}
                for name, route, source, replaces, err in rows]
-    log(f"train path: {train_ms:.3f} ms/step")
+    log(f"train path: {train_ms:.3f} ms/step; wdl path: "
+        + ", ".join(f"{rows} rows {ms:.3f} ms/step"
+                    for rows, (ms, _) in ctr.items()))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -38,7 +38,7 @@ _EVAL_NAMES = ("validate", "inference", "eval")
 _LATER = {
     "mesh": "slice F (parallelism beyond DP)",
     "dist_strategy": "slice A3 (data parallelism) / slice F",
-    "comm_mode": "slice A3 (data parallelism) / slice B (parameter server)",
+    "comm_mode": "slice A3 (data parallelism) / slice B2 (parameter server)",
     "pipeline": "slice F (pipeline parallelism)",
     "step_guard": "slice G (resilience)",
     "numerics": "slice G (telemetry)",
@@ -94,7 +94,7 @@ class SubExecutor:
         for p in self.placeholders:
             if hasattr(p, "ps_embedding"):
                 raise NotImplementedError(
-                    f"{p.name}: parameter-server rows arrive with slice B of "
+                    f"{p.name}: parameter-server rows arrive with slice B2 of "
                     "the port (ROADMAP.md)")
         self.opt_ops = [n for n in self.topo if hasattr(n, "init_state")]
         # train/eval mode: training iff the subgraph optimizes or

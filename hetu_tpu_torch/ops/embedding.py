@@ -1,11 +1,16 @@
-"""Embedding lookup (port of ``hetu_tpu/ops/embedding.py``, unpacked path).
+"""Embedding lookups (port of ``hetu_tpu/ops/embedding.py``): the row
+lookup of a standard [num_rows, dim] table and the lookup of a packed
+[p_rows, 128] table, whose gradient goes through the ``pack_write``
+kernel (ops/kernels/sparse_densify.py).
 
-The packed-table lookup and its write kernel arrive with slice B.
+The sharded packed lookup (``sharded_packed_lookup``) arrives with slice
+F, and the parameter-server path with slice B2 (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from .base import simple_op
+from ..graph.node import Op
+from .base import simple_op, _peek_id
 
 
 def _embedding_lookup(table, ids):
@@ -14,3 +19,22 @@ def _embedding_lookup(table, ids):
 
 
 embedding_lookup_op = simple_op(_embedding_lookup, "embedding_lookup")
+
+
+class _PackedLookupOp(Op):
+    """Lookup from a PACKED [p_rows, 128] embedding table; its backward
+    writes the dense packed gradient with the ``pack_write`` kernel on the
+    card (the JAX op engages its Pallas kernel off-mesh on TPU; the port
+    has no mesh yet)."""
+
+    def _compute(self, input_vals, ctx):
+        from .kernels.sparse_densify import packed_lookup
+        table, ids = input_vals
+        return packed_lookup(table, ids, self.attrs["dim"])
+
+
+def packed_embedding_lookup_op(table, ids, dim, name=None):
+    """Graph op: rows [..., dim] from a packed [p_rows, 128] table."""
+    return _PackedLookupOp(table, ids,
+                           name=name or f"packed_lookup_{_peek_id()}",
+                           dim=dim)

@@ -1,5 +1,5 @@
-"""Sparse softmax cross-entropy (port of ``hetu_tpu/ops/losses.py``,
-BERT subset)."""
+"""Sparse softmax cross-entropy and binary cross-entropy with logits (port
+of ``hetu_tpu/ops/losses.py``, the BERT and CTR subset)."""
 
 from __future__ import annotations
 
@@ -28,3 +28,15 @@ def _softmax_cross_entropy_sparse(y, labels, dim=-1, ignored_index=-1):
 
 softmax_cross_entropy_sparse_op = simple_op(
     _softmax_cross_entropy_sparse, "softmax_cross_entropy_sparse")
+
+
+def _bce_with_logits(logits, targets):
+    # numerically stable, in f32 as in JAX: max(x,0) - x*z + log(1+exp(-|x|))
+    logits = logits.float()
+    targets = targets.float()
+    return (torch.clamp_min(logits, 0) - logits * targets
+            + torch.log1p(torch.exp(-logits.abs())))
+
+
+binarycrossentropywithlogits_op = simple_op(_bce_with_logits,
+                                            "bce_with_logits")

@@ -1,4 +1,5 @@
-"""Elementwise math ops on the BERT path (port of ``hetu_tpu/ops/math.py``).
+"""Elementwise math ops on the BERT and CTR paths (port of
+``hetu_tpu/ops/math.py``).
 
 The rest of the JAX package's elementwise set arrives with the slices
 that use it (ROADMAP.md).
@@ -28,6 +29,8 @@ def mulbyconst_op(node, const=1.0, name=None):
 
 
 tanh_op = simple_op(torch.tanh, "tanh")
+sigmoid_op = simple_op(torch.sigmoid, "sigmoid")
+relu_op = simple_op(torch.relu, "relu")
 # the JAX package's gelu defaults to the tanh approximation
 gelu_op = simple_op(
     lambda a, approximate=True:

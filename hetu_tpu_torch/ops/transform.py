@@ -1,7 +1,9 @@
-"""Shape/layout transforms on the BERT path (port of
+"""Shape/layout transforms on the BERT and CTR paths (port of
 ``hetu_tpu/ops/transform.py``)."""
 
 from __future__ import annotations
+
+import torch
 
 from .base import simple_op
 
@@ -18,3 +20,7 @@ def _slice(a, begin_pos=None, output_shape=None):
 
 
 slice_op = simple_op(_slice, "slice")
+
+
+concat_op = simple_op(
+    lambda a, b, axis=0: torch.cat([a, b], dim=axis), "concat")
