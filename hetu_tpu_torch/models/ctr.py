@@ -65,8 +65,9 @@ class SparseFeatureEmbedding:
         return embedding_lookup_op(self.table, ids)  # [B, F, D]
 
     def host_table(self, params):
-        """Standard [num_rows, dim] numpy copy of the table from an
-        executor's params (unpacks the packed layout)."""
+        """Standard [num_rows, dim] numpy view of the table from an
+        executor's params (unpacks the packed layout; a table on the card
+        is copied to the host first)."""
         w = params[self.table.name].detach().cpu().numpy()
         if not self.packed:
             return w
