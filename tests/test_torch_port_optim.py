@@ -49,8 +49,13 @@ def test_adamw_with_clip_matches_jax_over_three_steps(kind):
         op = opt_mod.OptimizerOp(grads, xs, opt, clip_global_norm=0.5)
         return x, loss, xs, grads, op
 
-    xj, lj, vj, gj, opj = build(jt, jopt)
-    xt, lt, vt, gt, opt_ = build(pt, popt)
+    # each graph in its own package's name_scope, and the variables paired
+    # by position: a bare "w1" made earlier in the same process (another
+    # test file on the same xdist worker) would rename the JAX one "w1_1"
+    with jt.name_scope():
+        xj, lj, vj, gj, opj = build(jt, jopt)
+    with pt.name_scope():
+        xt, lt, vt, gt, opt_ = build(pt, popt)
     jex = jt.Executor({"train": [lj, opj, *gj]})
     tex = pt.Executor({"train": [lt, opt_, *gt]}, device="cpu")
     rng = np.random.default_rng(1)
@@ -65,9 +70,9 @@ def test_adamw_with_clip_matches_jax_over_three_steps(kind):
         for a, b in zip(got[2:], want[2:]):
             np.testing.assert_allclose(a, np.asarray(b), rtol=1e-5,
                                        atol=1e-7)
-        for v in vt:
+        for v, u in zip(vt, vj):
             np.testing.assert_allclose(tex.params[v.name].numpy(),
-                                       np.asarray(jex.params[v.name]),
+                                       np.asarray(jex.params[u.name]),
                                        atol=1e-6)
     state = tex.opt_state[opt_.name]
     assert int(state["step"]) == 3
