@@ -8,8 +8,8 @@ Phases, each fatal on failure (exit 1, no result lines):
 1. Card and build: the card's name and power limit, and the build of every
    kernel of the paths from the sources in this checkout: one nvcc per CUDA
    source (flash-attention forward with dropout; dQ and dK/dV backward; the
-   packed-gradient write), all started together, then Triton's compiler for
-   the softmax-CE forward and backward.
+   packed-gradient write; the MoE row gather), all started together, then
+   Triton's compiler for the softmax-CE forward and backward.
 2. Kernels against their plain PyTorch versions on the card, on the same
    inputs: the dropout keep bits bitwise; the flash forward (with and
    without dropout), dQ, dK/dV and the CE forward and backward at the main
@@ -18,9 +18,11 @@ Phases, each fatal on failure (exit 1, no result lines):
    and tail-line ids, Criteo's table, no ids), bitwise on lines with one
    contributor and against itself across two runs; the packed lookup's
    forward on the card against the CPU, with a NaN and an Inf row and
-   negative ids.  Each check prints its max |error| beside its stated
-   tolerance.
-3. Main paths, each driven with the six launch counters set to 0 just
+   negative ids; ``row_gather`` bitwise at the MoE dispatch and combine
+   shapes of bench_moe and of the Mixtral layer, f32 and bf16, with
+   out-of-range indices, and one backward through ``RowGatherFn``.  Each
+   check prints its max |error| beside its stated tolerance.
+3. Main paths, each driven with the seven launch counters set to 0 just
    before its timed steps and read just after:
    a. BERT-base (vocab 30522, hidden 768, 12 layers, 12 heads, FFN 3072,
       seq 512, MLM bucket 0.25 -> 8192 rows) evaluated through
@@ -42,13 +44,25 @@ Phases, each fatal on failure (exit 1, no result lines):
       step, every loss finite, then a ``predict`` run that changes no
       param.  Then one step each of DeepFM, DCN and DLRM on the packed
       table at 337,000 rows: a finite loss and 1 ``pack_write`` launch.
+   d. bench_moe's training step (BASELINE config 5): ``MoELayer(512, 2048,
+      num_experts=8, k=2, capacity_factor=1.25)``, gelu experts, loss
+      ``mse_loss_op(moe(x), y) + 0.01 * moe.aux_loss()`` under
+      ``Executor({"train": [loss, AdamOptimizer(1e-3).minimize(loss)]})``
+      at B=8 S=1024, f32: 3 warm-up and ``--steps`` timed steps, 3
+      ``row_gather`` launches per step (the dispatch and two combines; the
+      backward is a scatter-add), every loss finite, tokens/s; then the
+      same 3 steps twice from the same params, bitwise equal.  Then the
+      Mixtral-8x7B MoE layer (hidden 4096, FFN 14336, 8 swiglu experts,
+      top-2, capacity 4.0) at B=1 S=2048, f32, Adam: 1 warm-up and 3
+      timed steps, 3 ``row_gather`` launches per step.
    Each path's step is broken down by kernel class under torch.profiler.
    Then each kernel is timed at the paths' shapes beside its bound, its
    plain version and one PyTorch library call (a yardstick only; the port
    never calls it), and one f32 training step of BERT (batch 2, 2 layers,
-   full widths, dropout off) and one of W&D (337,000 rows) run from the
-   same params on the card (kernels) and on the CPU (plain versions):
-   loss, every gradient and every updated param are compared.
+   full widths, dropout off), one of W&D (337,000 rows) and one of a small
+   MoE layer (H=128, F=256, 4 experts, 64 tokens) run from the same params
+   on the card (kernels) and on the CPU (plain versions): loss, every
+   gradient and every updated param are compared.
 4. Result: a {"kernels": [...]} JSON line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
@@ -75,10 +89,16 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 CUDA_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
-                "pack_write.cu")
+                "pack_write.cu", "row_gather.cu")
 WDL_ROWS = 337000         # bench_wdl's table (bench.py:567)
 CRITEO_ROWS = 33762577    # Criteo's features (hetu_tpu/datasets/criteo.py)
 CTR_BATCH = 128
+# bench_moe (bench.py:463-497, BASELINE config 5, examples/moe): top-2 of 8
+# gelu experts, capacity factor 1.25, B=8 S=1024 H=512 F=2048, f32
+MOE = dict(B=8, S=1024, H=512, F=2048, E=8, k=2, cf=1.25, act="gelu")
+# the MoE layer of the Mixtral-8x7B config (hetu_tpu/models/llama.py:85-88,
+# 129-134): hidden 4096, FFN 14336, 8 swiglu experts, top-2, capacity 4.0
+MIXTRAL = dict(B=1, S=2048, H=4096, F=14336, E=8, k=2, cf=4.0, act="swiglu")
 
 failures = []
 
@@ -123,22 +143,28 @@ def time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=100):
+def device_ms(fn, iters=100, cold=False):
     """Device time of ``fn`` in ms per call: the time of the kernels it
     launches, summed under torch.profiler over ``iters`` calls.  For calls
     whose launch costs the host longer than their kernels take the card,
-    where back-to-back CUDA events time the host."""
+    where back-to-back CUDA events time the host.  ``cold``: each call
+    finds the 50 MB L2 cache holding none of its inputs (a 256 MB pass
+    over another buffer runs before it and is left out of the sum)."""
     from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda") \
+        if cold else None
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if cold:
+                flush.bitwise_not_()
             fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) \
-        / iters / 1e3
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not (cold and "bitwise_not" in e.key)) / iters / 1e3
 
 
 def bound(n_bytes, ops, dtype):
@@ -471,6 +497,74 @@ def packed_lookup_checks(rng, sd):
                         table[0, :dim].cpu().expand(2, dim)))
 
 
+def moe_routing(rng, moe):
+    """The gather indices of one top-2 MoE forward at the shapes of
+    ``moe`` (a MOE or MIXTRAL dict): random N(0, 1) f32 logits [T, E],
+    routed by the layer's gating (``top_k_gating_choices``) at the layer's
+    capacity.  Returns (T, C, dispatch index [E*C] int32, [combine index
+    [T] int32 per choice])."""
+    from hetu_tpu_torch.ops import moe as ops_moe
+    T, E = moe["B"] * moe["S"], moe["E"]
+    C = max(math.ceil(moe["cf"] * T * moe["k"] / E), 1)
+    logits = randn(rng, (T, E), torch.float32)
+    choices, _ = ops_moe.top_k_gating_choices(logits, moe["k"], C)
+    return (T, C, ops_moe.slot_to_token(choices, E, C),
+            [ops_moe.token_to_slot(c, C).to(torch.int32) for c in choices])
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def row_gather_checks(rng, md):
+    """Phase 2g: the row_gather kernel against ``row_gather_plain`` on the
+    card, bitwise (a copy): the dispatch and the two combine gathers of
+    the bench_moe path and of the Mixtral layer, in f32 and bf16, with -1,
+    n, n + 5 and the int32 extremes mixed into the real routing; then one
+    backward through ``RowGatherFn`` against the plain composition's
+    autograd.  Returns the max |error| (0 if bitwise)."""
+    worst = 0.0
+    for label, moe in (("bench_moe", MOE), ("mixtral", MIXTRAL)):
+        T, C, disp, combs = moe_routing(rng, moe)
+        E, H = moe["E"], moe["H"]
+        for name, n, idx in (("dispatch", T, disp),
+                             ("combine 0", E * C, combs[0]),
+                             ("combine 1", E * C, combs[1])):
+            idx = idx.clone()
+            idx[:6] = torch.tensor([-1, n, n + 5, -2 ** 31, 2 ** 31 - 1,
+                                    n - 1], dtype=torch.int32)
+            for dtype in (torch.float32, torch.bfloat16):
+                src = randn(rng, (n, H), dtype)
+                got = md.row_gather(src, idx)
+                torch.cuda.synchronize()
+                want = md.row_gather_plain(src, idx)
+                err = (got.float() - want.float()).abs().max().item()
+                worst = max(worst, err)
+                valid = int(((idx >= 0) & (idx < n)).sum())
+                require(f"row_gather {label} {name} [{n},{H}] by "
+                        f"{idx.numel()} ({valid} in range) "
+                        f"{str(dtype).split('.')[-1]}: bitwise equal to "
+                        f"plain (max_abs_err={err:.3e}, tol 0: a copy)",
+                        torch.equal(_bits(got), _bits(want)))
+                del src, got, want
+    # the backward: a scatter-add of the cotangent rows; each token feeds
+    # at most k = 2 slots, and two addends onto a zero row give the same
+    # bits in either order, so the card's atomics match the plain
+    # composition's autograd (index_select's backward) bitwise
+    T, C, disp, _ = moe_routing(rng, MOE)
+    src = randn(rng, (T, MOE["H"]), torch.float32)
+    ct = randn(rng, (disp.numel(), MOE["H"]), torch.float32)
+    s1 = src.clone().requires_grad_()
+    (g_kernel,) = torch.autograd.grad(md.row_gather(s1, disp), s1, ct)
+    s2 = src.clone().requires_grad_()
+    (g_plain,) = torch.autograd.grad(md.row_gather_plain(s2, disp), s2, ct)
+    torch.cuda.synchronize()
+    require("row_gather backward (RowGatherFn) at the bench_moe dispatch: "
+            "bitwise equal to the plain composition's autograd",
+            torch.equal(_bits(g_kernel), _bits(g_plain)))
+    return worst
+
+
 # -- phase 3 -----------------------------------------------------------------
 
 def build_bert(ht, models, B, S, L, dropout=0.1):
@@ -507,29 +601,30 @@ def bert_batch(rng, B, S, device):
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
-def counters(fa, ce, sd):
-    """The six launch counters of the paths' kernels."""
+def counters(fa, ce, sd, md):
+    """The seven launch counters of the paths' kernels."""
     return {"flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
             "softmax_ce_fwd": ce.softmax_ce_fwd,
             "softmax_ce_bwd": ce.softmax_ce_bwd,
-            "pack_write": sd.pack_write_kernel}
+            "pack_write": sd.pack_write_kernel,
+            "row_gather": md.row_gather_kernel}
 
 
 def expect_launches(**per_run):
     """Expected launches of every counter: the named ones, 0 for the rest."""
     names = ("flash_attention_fwd", "flash_attention_bwd_dq",
              "flash_attention_bwd_dkv", "softmax_ce_fwd", "softmax_ce_bwd",
-             "pack_write")
+             "pack_write", "row_gather")
     return {name: per_run.get(name, 0) for name in names}
 
 
-def run_path(label, step, fns, steps, B, expect):
-    """3 warm-up steps, then ``steps`` timed steps with the launch counters
+def run_path(label, step, fns, steps, B, expect, warmup=3, unit="samples"):
+    """``warmup`` steps, then ``steps`` timed steps with the launch counters
     zeroed just before and read just after; returns (losses of every step,
-    ms/step, launches)."""
-    losses = [step() for _ in range(3)]
+    ms/step, launches).  ``B`` counts the ``unit``s of a step."""
+    losses = [step() for _ in range(warmup)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
@@ -546,7 +641,7 @@ def run_path(label, step, fns, steps, B, expect):
     ms = start.elapsed_time(end) / steps
     losses = [float(v) for v in losses]
     log(f"{label}: {ms:.3f} ms/step, {1000.0 / ms:.2f} steps/s, "
-        f"{B * 1000.0 / ms:.1f} samples/s, peak memory "
+        f"{B * 1000.0 / ms:.1f} {unit}/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (resident "
         f"between steps {resident / 2**30:.2f} GiB), launches {launches} "
         f"over {steps} steps")
@@ -579,10 +674,11 @@ def profile_steps(label, step, steps=2, top=12):
         f"ms/step wall (traced), device busy {busy_us / steps / 1e3:.3f} "
         f"ms/step, idle share {max(0.0, 1 - busy_us / wall_us):.3f}, "
         f"{sum(e.count for e in kernels) // steps} kernel launches/step")
-    # kernel classes by name: the six kernels, the id sort, cuBLAS GEMMs,
+    # kernel classes by name: the seven kernels, the id sort, cuBLAS GEMMs,
     # reductions (layer-norm moments, means, sums), copies and casts, other
     # elementwise
     classes = (("pack_write", ("pack_write_kernel",)),
+               ("row_gather", ("row_gather_kernel",)),
                ("sort (cub radix)", ("Radix", "radix")),
                ("flash_attention_fwd", ("flash_fwd",)),
                ("flash_attention_bwd_dq", ("flash_bwd_dq",)),
@@ -961,6 +1057,200 @@ def cross_device_ctr(ht, models, rng, seed):
                         init[table][~touched]))
 
 
+def build_moe(ht, layers, moe):
+    """bench_moe's loss at the shapes of ``moe``: mse(moe(x), y) + 0.01
+    aux; returns (loss, x, y)."""
+    B, S, H = moe["B"], moe["S"], moe["H"]
+    x = ht.placeholder_op("moe_x", (B, S, H))
+    y = ht.placeholder_op("moe_y", (B, S, H))
+    layer = layers.MoELayer(H, moe["F"], num_experts=moe["E"], k=moe["k"],
+                            capacity_factor=moe["cf"],
+                            expert_act=moe["act"])
+    loss = ht.mse_loss_op(layer(x), y) + layer.aux_loss() * 0.01
+    return loss, x, y
+
+
+def moe_executor(ht, layers, rng, moe, seed):
+    """``Executor({"train": [loss, Adam(1e-3).minimize(loss)]})`` on the
+    card, bench_moe's feeds (x normal, y zeros) on the card, and a step
+    that returns the loss."""
+    with ht.name_scope():
+        loss, x, y = build_moe(ht, layers, moe)
+        train_op = ht.AdamOptimizer(1e-3).minimize(loss)
+    t0 = time.perf_counter()
+    ex = ht.Executor({"train": [loss, train_op]}, device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    shape = (moe["B"], moe["S"], moe["H"])
+    feed = {x: randn(rng, shape, torch.float32),
+            y: torch.zeros(shape, device="cuda")}
+
+    def step():
+        val, none = ex.run("train", feed_dict=feed)
+        if none is not None:
+            raise RuntimeError("run('train') must return [loss, None]")
+        return val
+    return ex, step, init_s
+
+
+def moe_paths(ht, layers, fns, rng, steps, seed):
+    """Phase 3d: bench_moe's training step at full size, its determinism,
+    and the Mixtral-width layer; returns (ms/step, launches) of bench_moe."""
+    m = MOE
+    tokens = m["B"] * m["S"]
+    ex, step, init_s = moe_executor(ht, layers, rng, m, seed)
+    log(f"moe path: MoELayer({m['H']}, {m['F']}, {m['E']} experts, top-"
+        f"{m['k']}, capacity {m['cf']}, {m['act']}) B={m['B']} S={m['S']} "
+        f"f32, Adam(1e-3), {sum(p.numel() for p in ex.params.values())} "
+        f"params, init {init_s:.1f} s")
+    label = "moe path"
+    _, ms, launches = run_path(
+        label, step, fns, steps, tokens,
+        expect_launches(row_gather=3 * steps), unit="tokens")
+    log(f"moe path: moe_top2_8expert_train_tokens_per_sec "
+        f"{tokens * 1000.0 / ms:.1f} ({ms:.3f} ms/step, "
+        f"{launches['row_gather'] / steps:g} row_gather launches/step)")
+    profile_steps(label, step, steps=1)
+    ex.close()
+    del ex, step
+    # the same 3 steps twice from the same params (the seed's init): the
+    # losses and the params after them must be bitwise equal
+    runs = []
+    for _ in range(2):
+        ex, step, _ = moe_executor(ht, layers,
+                                   np.random.default_rng(seed + 5), m, seed)
+        runs.append(([float(step()) for _ in range(3)],
+                     {k: v.clone() for k, v in ex.params.items()}))
+        ex.close()
+        del ex, step
+    (l1, p1), (l2, p2) = runs
+    log(f"moe path determinism: losses {l1} and {l2}")
+    require("moe path: 3 steps from the same params twice give bitwise "
+            "equal losses and params",
+            l1 == l2 and all(torch.equal(p1[k], p2[k]) for k in p1))
+    del runs, p1, p2
+    torch.cuda.empty_cache()
+
+    mx = MIXTRAL
+    ex, step, init_s = moe_executor(ht, layers, rng, mx, seed)
+    log(f"mixtral moe layer: MoELayer({mx['H']}, {mx['F']}, {mx['E']} "
+        f"experts, top-{mx['k']}, capacity {mx['cf']}, {mx['act']}) "
+        f"B={mx['B']} S={mx['S']} f32, Adam(1e-3), "
+        f"{sum(p.numel() for p in ex.params.values())} params, init "
+        f"{init_s:.1f} s")
+    run_path("mixtral moe layer", step, fns, 3, mx["B"] * mx["S"],
+             expect_launches(row_gather=9), warmup=1, unit="tokens")
+    ex.close()
+    del ex, step
+    torch.cuda.empty_cache()
+    return ms, launches
+
+
+def row_gather_times(rng, md):
+    """row_gather at the bench_moe path's three gathers (the dispatch, two
+    combines) on the layer's routing: the kernel, the plain version and
+    ``index_select`` of the clamped index (the library yardstick; it leaves
+    out the zero fill), each on the card's clock (``device_ms``) with the
+    L2 cache cold and warm, and back to back with CUDA events.  Returns the
+    cold times, summed over one step's three launches."""
+    T, C, disp, combs = moe_routing(rng, MOE)
+    H, E = MOE["H"], MOE["E"]
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0)
+    for name, n, idx in (("dispatch", T, disp), ("combine 0", E * C,
+                                                 combs[0]),
+                         ("combine 1", E * C, combs[1])):
+        src = torch.randn(n, H, device="cuda")
+        m = idx.numel()
+        in_range = idx[(idx >= 0) & (idx < n)]
+        rows = int(torch.unique(in_range).numel())
+        clamped = idx.clamp(0, n - 1)
+        calls = dict(ms=lambda: md.row_gather_kernel(src, idx),
+                     plain_ms=lambda: md.row_gather_plain(src, idx),
+                     library_ms=lambda: src.index_select(0, clamped))
+        t = {key: device_ms(fn, 50, cold=True) for key, fn in calls.items()}
+        warm = {key: device_ms(fn) for key, fn in calls.items()}
+        events = {key: time_ms(fn, 50) for key, fn in calls.items()}
+        # read each source row that an in-range index names once (a token
+        # in two slots is read once), write every output row once, read
+        # the m int32 indices
+        n_bytes = rows * H * 4 + m * H * 4 + m * 4
+        b = bound(n_bytes, 0, torch.float32)
+        log(f"kernel row_gather {name} [{n},{H}] f32 by {m} "
+            f"({in_range.numel()} in range, {rows} distinct rows), device "
+            f"time, L2 cold: kernel {t['ms']:.4f} ms, bound {b[0]:.4f} ms "
+            f"({n_bytes / 1e6:.1f} MB), plain {t['plain_ms']:.4f} ms, "
+            f"index_select {t['library_ms']:.4f} ms; L2 warm: kernel "
+            f"{warm['ms']:.4f} ms, plain {warm['plain_ms']:.4f}, "
+            f"index_select {warm['library_ms']:.4f}; back to back (CUDA "
+            f"events): kernel {events['ms']:.4f} ms, plain "
+            f"{events['plain_ms']:.4f}, index_select "
+            f"{events['library_ms']:.4f}")
+        require(f"row_gather {name} timings saw device time",
+                min(t.values()) > 0 and min(warm.values()) > 0)
+        for key in ("ms", "plain_ms", "library_ms"):
+            tot[key] += t[key]
+        tot["bytes"] += n_bytes
+        del src
+    tot["bound"] = bound(tot["bytes"], 0, torch.float32)
+    log(f"kernel row_gather, one bench_moe step's 3 launches, L2 cold: "
+        f"kernel {tot['ms']:.4f} ms, bound {tot['bound'][0]:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f} ms, index_select {tot['library_ms']:.4f} ms")
+    return tot
+
+
+def cross_device_moe(ht, layers, md, rng, seed):
+    """One f32 training step of a small MoE graph (H=128, F=256, 4 experts,
+    T=64) from the same params on the card (row_gather kernel) and on the
+    CPU (plain): loss, gradients and each param's change."""
+    small = dict(B=2, S=32, H=128, F=256, E=4, k=2, cf=1.25, act="gelu")
+    with ht.name_scope():
+        loss, x, y = build_moe(ht, layers, small)
+        xs = ht.graph_variables([loss], trainable_only=True)
+        grads = ht.gradients(loss, xs)
+        train_op = ht.AdamOptimizer(1e-3).apply_gradients(
+            list(zip(grads, xs)))
+    nodes = {"train": [loss, train_op, *grads]}
+    ex_gpu = ht.Executor(nodes, device="cuda", seed=seed + 6)
+    ex_cpu = ht.Executor(nodes, device="cpu", seed=seed + 7)
+    ex_cpu.load_state_dict(ex_gpu.state_dict())
+    init = {k: v.cpu() for k, v in ex_cpu.params.items()}
+    shape = (2, 32, 128)
+    feed = {x: torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)), y: torch.zeros(shape)}
+    before = md.row_gather_kernel.launches
+    out_gpu = ex_gpu.run("train", feed_dict=feed)
+    launches = md.row_gather_kernel.launches - before
+    out_cpu = ex_cpu.run("train", feed_dict=feed)
+    torch.cuda.synchronize()
+    require(f"cross-device MoE: the card's step launched row_gather "
+            f"({launches})", launches == 3)
+    check("cross-device f32 MoE train loss (card kernel vs CPU plain)",
+          out_gpu[0].cpu(), out_cpu[0], 1e-6,
+          "f32 on both sides; the expert products and the mean over 8192 "
+          "elements sum in another order")
+    scale = max(g.abs().max().item() for g in out_cpu[2:])
+    bad = [v.name for v, g_gpu, g_cpu in zip(xs, out_gpu[2:], out_cpu[2:])
+           if not ((g_gpu.cpu() - g_cpu).abs() - 1e-3 * g_cpu.abs()).max()
+           .item() <= 1e-5 * scale]
+    worst = max((g_gpu.cpu() - g_cpu).abs().max().item()
+                for g_gpu, g_cpu in zip(out_gpu[2:], out_cpu[2:]))
+    require(f"cross-device f32 MoE gradients of {len(xs)} params: "
+            f"max_abs_err={worst:.3e} tol=1e-5*{scale:.3e} + 1e-3*|g| (f32 "
+            "on both sides; the products' sums run in another order) "
+            f"{'bad: ' + str(bad) if bad else ''}", not bad)
+    errs = {}
+    for name, before in init.items():
+        change_cpu = ex_cpu.params[name] - before
+        change_gpu = ex_gpu.params[name].cpu() - before
+        errs[name] = ((change_gpu - change_cpu).norm()
+                      / change_cpu.norm()).item()
+    name = max(errs, key=errs.get)
+    require(f"cross-device MoE params after one Adam step: worst change "
+            f"error {errs[name]:.3e} ({name}) in the 2-norm, relative, tol "
+            "1e-4 (f32 update from gradients within the tolerance above)",
+            errs[name] <= 1e-4)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -971,10 +1261,12 @@ def main():
         return 2
 
     import hetu_tpu_torch as ht
+    import hetu_tpu_torch.layers as layers
     import hetu_tpu_torch.models as models
     from hetu_tpu_torch.ops.kernels import build
     from hetu_tpu_torch.ops.kernels import flash_attention as fa
     from hetu_tpu_torch.ops.kernels import softmax_ce as ce
+    from hetu_tpu_torch.ops.kernels import moe_dispatch as md
     from hetu_tpu_torch.ops.kernels import sparse_densify as sd
 
     # -- phase 1: card and build -------------------------------------------
@@ -998,13 +1290,14 @@ def main():
     ce_err, ce_bwd_err = ce_checks(rng, ce)
     pw_err = pack_write_checks(rng, sd)
     packed_lookup_checks(rng, sd)
+    rg_err = row_gather_checks(rng, md)
     torch.cuda.empty_cache()
     if failures:
         log(f"FAILED checks: {failures}")
         return 1
 
     # -- phase 3: the main paths --------------------------------------------
-    fns = counters(fa, ce, sd)
+    fns = counters(fa, ce, sd, md)
     B, S, L = 64, 512, 12
     steps = args.steps
     loss = build_bert(ht, models, B, S, L)
@@ -1064,12 +1357,18 @@ def main():
     if failures:
         log(f"FAILED: {failures}")
         return 1
+    moe_ms, moe_launches = moe_paths(ht, layers, fns, rng, steps, args.seed)
+    if failures:
+        log(f"FAILED: {failures}")
+        return 1
 
     times = kernel_times(rng, fa, ce, B, S)
     torch.cuda.empty_cache()
     pw_times = pack_write_times(rng, sd)
+    times["row_gather"] = row_gather_times(rng, md)
     cross_device(ht, models, rng, args.seed)
     cross_device_ctr(ht, models, rng, args.seed)
+    cross_device_moe(ht, layers, md, rng, args.seed)
     if failures:
         log(f"FAILED: {failures}")
         return 1
@@ -1091,10 +1390,14 @@ def main():
          "hetu_tpu/ops/pallas/softmax_ce.py:140", ce_bwd_err),
         ("pack_write", "cuda", src + "csrc/pack_write.cu",
          "hetu_tpu/ops/pallas/sparse_densify.py:152", pw_err),
+        ("row_gather", "cuda", src + "csrc/row_gather.cu",
+         "hetu_tpu/ops/pallas/moe_dispatch.py:124", rg_err),
     ]
-    # launches: each kernel's own training path (BERT, or W&D at 337,000
-    # rows for pack_write)
-    launches = dict(train_launches, pack_write=ctr[WDL_ROWS][1]["pack_write"])
+    # launches: each kernel's own training path (BERT, W&D at 337,000 rows
+    # for pack_write, bench_moe for row_gather); row_gather's times are the
+    # sums over one bench_moe step's three launches
+    launches = dict(train_launches, pack_write=ctr[WDL_ROWS][1]["pack_write"],
+                    row_gather=moe_launches["row_gather"])
     times["pack_write"] = pw_times[WDL_ROWS]
     kernels = [{"name": name, "route": route, "source": source,
                 "replaces": replaces, "launches": launches[name],
@@ -1106,7 +1409,8 @@ def main():
                for name, route, source, replaces, err in rows]
     log(f"train path: {train_ms:.3f} ms/step; wdl path: "
         + ", ".join(f"{rows} rows {ms:.3f} ms/step"
-                    for rows, (ms, _) in ctr.items()))
+                    for rows, (ms, _) in ctr.items())
+        + f"; moe path: {moe_ms:.3f} ms/step")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -7,10 +7,11 @@ passes ``device="cpu"``.  Each Pallas TPU kernel on a ported path is a
 hand-written Hopper kernel here (``ops/kernels/``, ``csrc/``).  The port
 imports nothing of JAX or of ``hetu_tpu``.
 
-Slices A1, A2 and B1 (this package so far): BERT evaluation, the
-single-device BERT training step (autodiff, AdamW, dropout), and
-Wide&Deep/CTR training on a packed embedding table (models/ctr.py), all
-through the Executor.  Names of later slices raise
+Slices A1, A2, B1 and E (this package so far): BERT evaluation, the
+single-device BERT training step (autodiff, AdamW, dropout),
+Wide&Deep/CTR training on a packed embedding table (models/ctr.py), and
+the single-device MoE FFN training step (layers/moe.py), all through the
+Executor.  Names of later slices raise
 ``NotImplementedError`` (ROADMAP.md).
 """
 

@@ -1,0 +1,307 @@
+"""The MoE FFN layer on one device (port of ``hetu_tpu/layers/moe.py``).
+
+Reshape -> gate -> dispatch -> expert FFNs -> combine, in one graph node
+(``_MoEOp``), with the balance loss in a second node that recomputes only
+the logits-level aux (``MoEAuxLossOp``).  A gate with a choices form
+takes the sparse route, as the JAX package does without a mesh: the
+dispatch and the combine are row gathers (the ``row_gather`` kernel on the
+card, three launches a forward at k = 2), and the [T, E, C] one-hot
+tensors never exist.  ``sparse=False`` forces the dense einsum route.
+The expert products are batched matrix products (``torch.einsum``), which
+the JAX package also leaves outside any kernel.  Parameter names, shapes
+and initializers are the JAX package's, so weights carry across by name
+(weights.py).  Expert parallelism (``ep_axis``) is slice F of the port.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .base import BaseLayer, fresh_name
+from ..graph.node import Op, VariableOp
+from .. import initializers as init
+from ..ops.moe import (top_k_gating, hash_gating, ktop1_gating, sam_gating,
+                       base_balance_gating, top_k_balance_aux,
+                       ktop1_balance_aux, sam_balance_aux,
+                       top_k_gating_choices, hash_gating_choices,
+                       ktop1_gating_choices, sam_gating_choices,
+                       sparse_dispatch, sparse_combine)
+
+
+def _orthogonal_rows(rng, rows, cols, gain=0.1):
+    """Orthogonal centroid init (the BASE layer's generate_orthogonal)."""
+    flat = rng.normal(0, 1, (max(rows, cols), min(rows, cols)))
+    q, r = np.linalg.qr(flat)
+    q = q * np.sign(np.diag(r))
+    if rows < cols:
+        q = q.T
+    return (q[:rows, :cols] * gain).astype(np.float32)
+
+
+class TopKGate(BaseLayer):
+    """GShard top-1/top-2 gate weights.  Routing hyper-parameters (k,
+    capacity) live on the MoELayer."""
+
+    def __init__(self, hidden_size, num_experts, name=None):
+        name = fresh_name(name or "gate")
+        self.wg = VariableOp(f"{name}_w", (hidden_size, num_experts),
+                             init.xavier_uniform())
+
+    def gating(self, tokens, wg, ids, k, capacity):
+        return top_k_gating(tokens @ wg, k, capacity)
+
+    def gating_choices(self, tokens, wg, ids, k, capacity):
+        return top_k_gating_choices(tokens @ wg, k, capacity)
+
+    def aux(self, tokens, wg, ids, k):
+        return top_k_balance_aux(tokens @ wg)
+
+
+class HashGate(BaseLayer):
+    """Deterministic id-hash gate.  Requires token ids passed to
+    MoELayer.__call__."""
+
+    has_aux = False   # routing is deterministic: no balance loss
+
+    def __init__(self, num_experts, name=None):
+        self.num_experts = num_experts
+        self.wg = None
+
+    def gating(self, tokens, wg, ids, k, capacity):
+        return hash_gating(ids.reshape(-1), self.num_experts, capacity,
+                           dtype=tokens.dtype)
+
+    def gating_choices(self, tokens, wg, ids, k, capacity):
+        return hash_gating_choices(ids.reshape(-1), self.num_experts,
+                                   capacity, dtype=tokens.dtype)
+
+
+class KTop1Gate(BaseLayer):
+    """k-prototype top-1 gate: experts split into k prototypes; each token
+    routes top-1 within every prototype."""
+
+    def __init__(self, hidden_size, num_experts, name=None):
+        name = fresh_name(name or "ktop1_gate")
+        self.wg = VariableOp(f"{name}_w", (hidden_size, num_experts),
+                             init.xavier_uniform())
+
+    def gating(self, tokens, wg, ids, k, capacity):
+        return ktop1_gating(tokens @ wg, k, capacity)
+
+    def gating_choices(self, tokens, wg, ids, k, capacity):
+        return ktop1_gating_choices(tokens @ wg, k, capacity)
+
+    def aux(self, tokens, wg, ids, k):
+        return ktop1_balance_aux(tokens @ wg, k)
+
+
+class SAMGate(BaseLayer):
+    """Switch-and-mix locality gate: pick the expert group with the largest
+    mass, then top-k inside it."""
+
+    def __init__(self, hidden_size, num_experts, num_groups, name=None):
+        name = fresh_name(name or "sam_gate")
+        assert num_experts % num_groups == 0
+        self.num_groups = num_groups
+        self.wg = VariableOp(f"{name}_w", (hidden_size, num_experts),
+                             init.xavier_uniform())
+
+    def gating(self, tokens, wg, ids, k, capacity):
+        return sam_gating(tokens @ wg, k, capacity, self.num_groups)
+
+    def gating_choices(self, tokens, wg, ids, k, capacity):
+        return sam_gating_choices(tokens @ wg, k, capacity,
+                                  self.num_groups)
+
+    def aux(self, tokens, wg, ids, k):
+        return sam_balance_aux(tokens @ wg, self.num_groups)
+
+
+class BalanceGate(BaseLayer):
+    """BASE-layer gate: balanced assignment against fixed orthogonal expert
+    centroids, sigmoid combine.  It has no choices form, so its layer takes
+    the dense route."""
+
+    has_aux = False   # assignment is balanced by construction
+
+    def __init__(self, hidden_size, num_experts, seed=0, name=None):
+        name = fresh_name(name or "balance_gate")
+        cent = _orthogonal_rows(np.random.default_rng(seed), num_experts,
+                                hidden_size)
+        # wg = centroids^T so scores = tokens @ wg, like the other gates
+        self.wg = VariableOp(f"{name}_centroids", (hidden_size, num_experts),
+                             init.NumpyInit(cent.T.copy()), trainable=False)
+
+    def gating(self, tokens, wg, ids, k, capacity):
+        return base_balance_gating(tokens @ wg, capacity)
+
+
+class _MoEOp(Op):
+    """Fused gate + dispatch + experts + combine."""
+
+    def __init__(self, x, gate, w1, b1, w2, b2, num_experts, capacity_factor,
+                 k, ids=None, sparse=True, w3=None, name=None):
+        # swiglu experts are biasless: b1/b2 are None and stay out of the
+        # graph
+        inputs = [x, w1, w2] if b1 is None else [x, w1, b1, w2, b2]
+        self.has_biases = b1 is not None
+        if w3 is not None:                    # swiglu experts: up proj
+            inputs.append(w3)
+        if gate.wg is not None:
+            inputs.append(gate.wg)
+        if ids is not None:
+            inputs.append(ids)
+        super().__init__(*inputs, name=name or "moe")
+        self.gate = gate
+        self.num_experts = num_experts
+        self.capacity_factor = capacity_factor
+        self.k = k
+        self.sparse = sparse
+        self.has_w3 = w3 is not None
+        self.has_ids = ids is not None
+
+    def _unpack(self, input_vals):
+        """Input layout shared with MoEAuxLossOp (same inputs list)."""
+        if self.has_biases:
+            x, w1, b1, w2, b2 = input_vals[:5]
+            rest = list(input_vals[5:])
+        else:
+            x, w1, w2 = input_vals[:3]
+            b1 = b2 = None
+            rest = list(input_vals[3:])
+        w3 = rest.pop(0) if self.has_w3 else None
+        wg = rest.pop(0) if self.gate.wg is not None else None
+        ids = rest.pop(0) if self.has_ids else None
+        return x, w1, b1, w2, b2, w3, wg, ids
+
+    def _capacity(self, T):
+        return max(int(np.ceil(self.capacity_factor * T * self.k
+                               / self.num_experts)), 1)
+
+    def _compute(self, input_vals, ctx):
+        x, w1, b1, w2, b2, w3, wg, ids = self._unpack(input_vals)
+        orig_shape = x.shape
+        tokens = x.reshape(-1, x.shape[-1])
+        C = self._capacity(tokens.shape[0])
+
+        # row-gather dispatch when the gate exposes routing choices: memory
+        # O(T·H + E·C·H), never the O(T·E·C) one-hot tensors
+        sparse = self.sparse and hasattr(self.gate, "gating_choices")
+        if sparse:
+            choices, _ = self.gate.gating_choices(tokens, wg, ids, self.k, C)
+            expert_in = sparse_dispatch(tokens, choices, self.num_experts, C)
+        else:
+            dispatch, combine, _ = self.gate.gating(tokens, wg, ids, self.k,
+                                                    C)
+            expert_in = torch.einsum("tec,th->ech", dispatch, tokens)
+        # per-expert FFN: [E, C, H] @ [E, H, F] -> [E, C, F]
+        if self.has_w3:
+            # swiglu experts (Mixtral-style): silu(x@w1) * (x@w3) @ w2
+            a = (F.silu(torch.einsum("ech,ehf->ecf", expert_in, w1))
+                 * torch.einsum("ech,ehf->ecf", expert_in, w3))
+            out = torch.einsum("ecf,efh->ech", a, w2)
+        else:
+            # the JAX package's gelu is the tanh form
+            a = F.gelu(torch.einsum("ech,ehf->ecf", expert_in, w1)
+                       + b1[:, None, :], approximate="tanh")
+            out = torch.einsum("ecf,efh->ech", a, w2) + b2[:, None, :]
+        if sparse:
+            combined = sparse_combine(out, choices)
+        else:
+            combined = torch.einsum("ech,tec->th", out, combine)
+        return combined.reshape(orig_shape)
+
+
+class MoEAuxLossOp(Op):
+    """The MoE layer's balance loss, recomputed from the logits alone (the
+    gate's ``aux``), never through the dispatch."""
+
+    def __init__(self, moe_op):
+        super().__init__(*moe_op.inputs, name=f"{moe_op.name}_aux")
+        self.moe = moe_op
+
+    def _compute(self, input_vals, ctx):
+        x, _, _, _, _, _, wg, ids = self.moe._unpack(input_vals)
+        if not getattr(self.moe.gate, "has_aux", True):
+            # hash/balance gates have an identically zero aux
+            return torch.zeros((), dtype=x.dtype, device=x.device)
+        tokens = x.reshape(-1, x.shape[-1])
+        aux_fn = getattr(self.moe.gate, "aux", None)
+        if aux_fn is not None:
+            aux = aux_fn(tokens, wg, ids, self.moe.k)
+        else:
+            # caller-built gate without the aux-only path: full gating
+            _, _, aux = self.moe.gate.gating(
+                tokens, wg, ids, self.moe.k,
+                self.moe._capacity(tokens.shape[0]))
+        return torch.as_tensor(aux, dtype=x.dtype, device=x.device)
+
+
+class MoELayer(BaseLayer):
+    """Mixture-of-experts FFN block (drop-in for TransformerFFN)."""
+
+    def __init__(self, hidden_size, intermediate_size, num_experts, k=2,
+                 capacity_factor=1.25, gate="top", ep_axis=None,
+                 num_groups=None, sparse=True, expert_act="gelu",
+                 name=None):
+        if ep_axis is not None:
+            raise NotImplementedError(
+                "MoELayer(ep_axis=...): expert parallelism arrives with "
+                "slice F (parallelism beyond DP) of the port (ROADMAP.md)")
+        name = fresh_name(name or "moe")
+        if isinstance(gate, BaseLayer):
+            self.gate = gate                      # caller-built gate
+        elif gate == "top":
+            self.gate = TopKGate(hidden_size, num_experts, name=name)
+        elif gate == "hash":
+            self.gate = HashGate(num_experts)
+        elif gate == "ktop1":
+            self.gate = KTop1Gate(hidden_size, num_experts, name=name)
+        elif gate == "sam":
+            self.gate = SAMGate(hidden_size, num_experts,
+                                num_groups or 2, name=name)
+        elif gate == "balance":
+            self.gate = BalanceGate(hidden_size, num_experts, name=name)
+        else:
+            raise ValueError(gate)
+        assert expert_act in ("gelu", "swiglu")
+        self.expert_act = expert_act
+        self.w1 = VariableOp(f"{name}_w1",
+                             (num_experts, hidden_size, intermediate_size),
+                             init.xavier_uniform())
+        self.b1 = VariableOp(f"{name}_b1", (num_experts, intermediate_size),
+                             init.zeros()) \
+            if expert_act == "gelu" else None
+        self.w2 = VariableOp(f"{name}_w2",
+                             (num_experts, intermediate_size, hidden_size),
+                             init.xavier_uniform())
+        self.b2 = VariableOp(f"{name}_b2", (num_experts, hidden_size),
+                             init.zeros()) \
+            if expert_act == "gelu" else None
+        # swiglu experts: silu(x@w1) * (x@w3) @ w2, no biases
+        self.w3 = VariableOp(f"{name}_w3",
+                             (num_experts, hidden_size, intermediate_size),
+                             init.xavier_uniform()) \
+            if expert_act == "swiglu" else None
+        self.num_experts = num_experts
+        self.capacity_factor = capacity_factor
+        self.k = k
+        # sparse=False forces the dense one-hot einsum dispatch
+        self.sparse = sparse
+        self.last_op = None
+
+    def __call__(self, x, ids=None):
+        if self.gate.wg is None and ids is None:
+            raise ValueError(
+                "hash-gated MoELayer requires token ids: moe(x, ids=...)")
+        self.last_op = _MoEOp(x, self.gate, self.w1, self.b1, self.w2,
+                              self.b2, self.num_experts,
+                              self.capacity_factor, self.k, ids=ids,
+                              sparse=self.sparse, w3=self.w3)
+        return self.last_op
+
+    def aux_loss(self):
+        assert self.last_op is not None
+        return MoEAuxLossOp(self.last_op)

@@ -7,6 +7,9 @@ from .reduce import reduce_mean_op, reduce_sum_op
 from .nn import layer_normalization_op, DropoutOp, dropout_op
 from .embedding import embedding_lookup_op, packed_embedding_lookup_op
 from .losses import (softmax_cross_entropy_sparse_op,
-                     binarycrossentropywithlogits_op)
+                     binarycrossentropywithlogits_op, mse_loss_op)
+from .moe import (top_k_gating, hash_gating, layout_transform_op,
+                  reverse_layout_transform_op, topk_idx_op, topk_val_op,
+                  scatter1d_op, balance_assignment, sam_group_sum)
 from .attention import (ScaledDotProductAttentionOp,
                         scaled_dot_product_attention_op)

@@ -1,5 +1,6 @@
-"""Sparse softmax cross-entropy and binary cross-entropy with logits (port
-of ``hetu_tpu/ops/losses.py``, the BERT and CTR subset)."""
+"""Sparse softmax cross-entropy, binary cross-entropy with logits and the
+mean squared error (port of ``hetu_tpu/ops/losses.py``, the BERT, CTR and
+MoE subset)."""
 
 from __future__ import annotations
 
@@ -40,3 +41,10 @@ def _bce_with_logits(logits, targets):
 
 binarycrossentropywithlogits_op = simple_op(_bce_with_logits,
                                             "bce_with_logits")
+
+
+mse_loss_op = simple_op(
+    lambda y, y_, reduction="mean":
+        (y - y_).square().mean() if reduction == "mean"
+        else (y - y_).square(),
+    "mse_loss")

@@ -199,8 +199,13 @@ def _port_sources():
 
 
 def test_port_imports_no_jax_nor_hetu_tpu():
+    sources = list(_port_sources())
+    # the walk reaches every slice's modules, the MoE slice's among them
+    for module in ("ops/moe.py", "layers/moe.py",
+                   "ops/kernels/moe_dispatch.py", "ops/losses.py"):
+        assert os.path.join(ROOT, "hetu_tpu_torch", module) in sources
     bad = []
-    for path in _port_sources():
+    for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         for node in ast.walk(tree):
@@ -217,7 +222,9 @@ def test_port_imports_no_jax_nor_hetu_tpu():
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, hetu_tpu_torch, hetu_tpu_torch.models; "
+    code = ("import sys, hetu_tpu_torch, hetu_tpu_torch.models, "
+            "hetu_tpu_torch.layers.moe, "
+            "hetu_tpu_torch.ops.kernels.moe_dispatch; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'hetu_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
