@@ -6,7 +6,7 @@ On the CPU both packages' ``row_gather`` run the ``jnp.take`` composition
 and its port (tests/test_torch_port_moe_dispatch.py); the CUDA kernel is
 held to it on the card by ``chip_smoke.py``.
 
-Tolerances, each with the reading it was set from (my CPU run):
+Tolerances, each with the reading on the CPU that it was set from:
 - expert indices, queue positions and the dispatch are exact (argmax takes
   the first maximum in both packages; positions are sums of 0/1 in f32);
 - gates and the aux loss rtol 1e-6: a softmax over E = 4 in f32, which the
@@ -257,7 +257,7 @@ def test_moe_params_carry_across_by_name():
     _, _, _, vt, nt = _layer_graph(pt, TMoELayer, "gelu")
     jex = jt.Executor(nj)
     tex = pt.Executor(nt, device="cpu")
-    params = {k: np.asarray(v) for k, v in jex.params.items()}
+    params = {k: np.array(v) for k, v in jex.params.items()}
     assert {k: v.shape for k, v in params.items()} == {
         "moe_w1": (E, H, F), "moe_b1": (E, F), "moe_w2": (E, F, H),
         "moe_b2": (E, H), "moe1_w": (H, E)}
