@@ -7,9 +7,10 @@ Phases, each fatal on failure (exit 1, no result lines):
 
 1. Card and build: the card's name and power limit, and the build of every
    kernel of the paths from the sources in this checkout: one nvcc per CUDA
-   source (flash-attention forward with dropout; dQ and dK/dV backward; the
-   packed-gradient write; the MoE row gather), all started together, then
-   Triton's compiler for the softmax-CE forward and backward.
+   source (flash-attention forward with dropout and its blockwise offset
+   path; dQ and dK/dV backward, also blockwise; the packed-gradient write;
+   the MoE row gather), all started together, then Triton's compiler for
+   the softmax-CE forward and backward.
 2. Kernels against their plain PyTorch versions on the card, on the same
    inputs: the dropout keep bits bitwise; the flash forward (with and
    without dropout), dQ, dK/dV and the CE forward and backward at the main
@@ -20,9 +21,16 @@ Phases, each fatal on failure (exit 1, no result lines):
    forward on the card against the CPU, with a NaN and an Inf row and
    negative ids; ``row_gather`` bitwise at the MoE dispatch and combine
    shapes of bench_moe and of the Mixtral layer, f32 and bf16, with
-   out-of-range indices, and one backward through ``RowGatherFn``.  Each
-   check prints its max |error| beside its stated tolerance.
-3. Main paths, each driven with the seven launch counters set to 0 just
+   out-of-range indices, and one backward through ``RowGatherFn``; the
+   blockwise (ring) forward, dQ and dK/dV at the full, diagonal, empty,
+   partial and misaligned offsets, with a K/V block twice q's length, and
+   every step of a 4-rank ring at the cp path's shape, f32 and bf16, d 64
+   and 128 (empty rows lse = -1e30 and o = 0, unseen K/V rows dk = dv = 0,
+   bitwise); and ``ring_attention`` over a 4-position mesh against the
+   single-device flash kernel on the global sequence, output and three
+   gradients.  Each check prints its max |error| beside its stated
+   tolerance.
+3. Main paths, each driven with the ten launch counters set to 0 just
    before its timed steps and read just after:
    a. BERT-base (vocab 30522, hidden 768, 12 layers, 12 heads, FFN 3072,
       seq 512, MLM bucket 0.25 -> 8192 rows) evaluated through
@@ -55,14 +63,31 @@ Phases, each fatal on failure (exit 1, no result lines):
       Mixtral-8x7B MoE layer (hidden 4096, FFN 14336, 8 swiglu experts,
       top-2, capacity 4.0) at B=1 S=2048, f32, Adam: 1 warm-up and 3
       timed steps, 3 ``row_gather`` launches per step.
+   e. bench_llama's Llama (vocab 32000, hidden 768, 12 layers, 12 heads,
+      4 KV heads, FFN 2048) at B=8 S=1024, bf16 over f32 masters,
+      ``AdamWOptimizer(1e-4, weight_decay=0.01)``, labels the ids rolled
+      by one, through ``Executor({"train": [loss, train_op]},
+      mesh=make_mesh({"cp": 4}, devices=[cuda:0] * 4),
+      compute_dtype=bfloat16)``: 3 warm-up and ``--steps`` timed steps,
+      per step 48 blockwise forward, 48 dQ and 48 dK/dV launches (12
+      layers x 4 ring steps) and 1 CE forward and backward; then the same
+      steps without a mesh from the same params (12 flash forward, dQ and
+      dK/dV launches a step), ms/step, tokens/s and peak memory of both.
+      Then 2 of Mistral-7B's 32 layers at its published widths (hidden
+      4096, 32 heads, 8 KV heads, FFN 14336) at B=1 S=8192 under cp=4: 1
+      warm-up and 3 timed steps.
    Each path's step is broken down by kernel class under torch.profiler.
    Then each kernel is timed at the paths' shapes beside its bound, its
    plain version and one PyTorch library call (a yardstick only; the port
    never calls it), and one f32 training step of BERT (batch 2, 2 layers,
-   full widths, dropout off), one of W&D (337,000 rows) and one of a small
-   MoE layer (H=128, F=256, 4 experts, 64 tokens) run from the same params
-   on the card (kernels) and on the CPU (plain versions): loss, every
-   gradient and every updated param are compared.
+   full widths, dropout off), one of W&D (337,000 rows), one of a small
+   MoE layer (H=128, F=256, 4 experts, 64 tokens) and one of a small
+   Llama under cp=4 (2 layers, hidden 256, 4 heads, 2 KV heads, S=1024)
+   run from the same params on the card (kernels) and on the CPU (plain
+   versions): loss, every gradient and every updated param are compared.
+   The blockwise kernels are timed at the witness's block shape, q
+   [1,32,2048,128] bf16, for the full, diagonal and empty blocks, beside
+   scaled_dot_product_attention (the yardstick) and its backward.
 4. Result: a {"kernels": [...]} JSON line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
@@ -121,6 +146,23 @@ def check(name, got, want, atol, why, rtol=0.0):
     return err
 
 
+def check_spread(name, got, want, atol, rtol, spread, why):
+    """Pass iff |got - want| <= atol + rtol * |want| + 2^-8 * spread
+    everywhere: ``spread`` is, per entry, the sum of the sizes of the bf16
+    terms that make it, each of which the two sides may round one ulp
+    apart (2^-8 of the term)."""
+    diff = (got.float() - want.float()).abs()
+    excess = (diff - rtol * want.float().abs() - atol
+              - 2.0 ** -8 * spread).max().item()
+    ok = excess <= 0  # False for NaN
+    log(f"check {name}: max_abs_err={diff.max().item():.3e} tol={atol:g} + "
+        f"{rtol:g}*|want| + 2^-8*spread (max spread "
+        f"{spread.max().item():.3e}; {why}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(name)
+    return diff.max().item()
+
+
 def require(name, ok):
     log(f"check {name}: {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -149,22 +191,31 @@ def device_ms(fn, iters=100, cold=False):
     whose launch costs the host longer than their kernels take the card,
     where back-to-back CUDA events time the host.  ``cold``: each call
     finds the 50 MB L2 cache holding none of its inputs (a 256 MB pass
-    over another buffer runs before it and is left out of the sum)."""
+    over another buffer runs before it and is left out of the sum).  A
+    window in which the profiler recorded no kernel of ``fn`` (it
+    sometimes drops a short window's device records) is profiled again,
+    up to 3 times, and logged; 0 if none recorded any."""
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda") \
         if cold else None
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if cold:
-                flush.bitwise_not_()
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not (cold and "bitwise_not" in e.key)) / iters / 1e3
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if cold:
+                    flush.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not (cold and "bitwise_not" in e.key)) / iters / 1e3
+        if ms > 0:
+            return ms
+        log(f"device_ms: the profiler recorded no device time of the call "
+            f"(window {attempt + 1} of 3)")
+    return 0.0
 
 
 def bound(n_bytes, ops, dtype):
@@ -363,6 +414,127 @@ def flash_bwd_checks(rng, fa):
         case("[1,2,256,512] widest-head", 1, 2, 256, 512, dtype,
              mask=bert_mask(rng, 1, 256, "cuda"))
     return errs
+
+
+def _name(dtype):
+    return str(dtype).split(".")[-1]
+
+
+def bwd_spread(q, k, v, do, lse, dsum, q_off, k_off, ring=None):
+    """Per entry of (dq, dk, dv) of the blockwise backward: the sum of the
+    sizes of its terms (|dS| |K| scale, |dS|^T |Q| scale, P^T |dO|) over
+    each rank's block pair, in f32."""
+    n, r = ring or (1, 0)
+    gq, gk = q.shape[2] // n, k.shape[2] // n
+    scale = q.shape[-1] ** -0.5
+    out = [torch.zeros(t.shape, device=t.device) for t in (q, k, v)]
+    for g in range(n):
+        src = (g - r) % n
+        qs, ks = slice(g * gq, (g + 1) * gq), slice(src * gk, (src + 1) * gk)
+        qf, kf, vf, dof = (t.float() for t in (q[:, :, qs], k[:, :, ks],
+                                               v[:, :, ks], do[:, :, qs]))
+        rows = q_off + g * gq + torch.arange(gq, device=q.device)
+        keys = k_off + src * gk + torch.arange(gk, device=q.device)
+        p = torch.exp(qf @ kf.transpose(-1, -2) * scale
+                      - lse[:, :, qs, None]).masked_fill(
+                          keys[None, :] > rows[:, None], 0.0)
+        ds = (p * (dof @ vf.transpose(-1, -2) - dsum[:, :, qs, None])).abs()
+        out[0][:, :, qs] = scale * ds @ kf.abs()
+        out[1][:, :, ks] = scale * ds.transpose(-1, -2) @ qf.abs()
+        out[2][:, :, ks] = p.transpose(-1, -2) @ dof.abs()
+    return out
+
+
+def block_checks(rng, fa):
+    """Phase 2c': the blockwise (ring) forward, dQ and dK/dV kernels
+    against their plain versions: one block pair at the full, diagonal,
+    empty and partial offsets, a K/V block twice q's length, and every
+    step of a 4-rank ring at the main path's shape.  The backward takes
+    the forward's own (o, lse) and a random cotangent.  Empty rows must
+    give lse = -1e30 and o = 0, and K/V rows that no query sees dk = dv =
+    0, bitwise.  Returns the largest errors of the bf16 ring cases (the
+    main path's)."""
+    def case(label, q_shape, sk, q_off, k_off, dtype, ring=None):
+        B, H, S, D = q_shape
+        q, do = (randn(rng, q_shape, dtype) for _ in range(2))
+        k, v = (randn(rng, (B, H, sk, D), dtype) for _ in range(2))
+        kw = dict(ring=ring)
+        o, lse = fa.flash_attention_block(q, k, v, q_off, k_off, **kw)
+        dsum = (do.float() * o.float()).sum(-1)
+        dq = fa.flash_attention_block_bwd_dq(q, k, v, do, lse, dsum, q_off,
+                                             k_off, **kw)
+        dk, dv = fa.flash_attention_block_bwd_dkv(q, k, v, do, lse, dsum,
+                                                  q_off, k_off, **kw)
+        torch.cuda.synchronize()
+        o_p, lse_p = fa.flash_attention_block_plain(q, k, v, q_off, k_off,
+                                                    ring=ring)
+        plain = fa.flash_attention_block_bwd_plain(q, k, v, do, lse_p, dsum,
+                                                   q_off, k_off, ring=ring)
+        name = f"block {label} {_name(dtype)}"
+        errs = [check(f"{name} o", o, o_p, *FWD_TOL[dtype])]
+        live = lse_p > -1e30
+        check(f"{name} lse (live rows)", torch.where(live, lse, 0.0),
+              torch.where(live, lse_p, 0.0), *LSE_TOL)
+        require(f"{name}: empty rows lse = -1e30 and o = 0 bitwise "
+                f"({int((~live).sum())} rows)",
+                bool((lse[~live] == -1e30).all())
+                and bool((o.float().abs().sum(-1)[~live] == 0).all()))
+        if dtype == torch.float32:
+            errs += [check(f"{name} {g}", got, want, *BWD_TOL[dtype])
+                     for g, got, want in zip(("dq", "dk", "dv"),
+                                             (dq, dk, dv), plain)]
+        else:
+            spread = bwd_spread(q, k, v, do, lse_p, dsum, q_off, k_off, ring)
+            atol, _, rtol = BWD_TOL[dtype]
+            errs += [check_spread(
+                f"{name} {g}", got, want, atol, rtol, sp,
+                "both sides round dS and P~ to bf16 before their products; "
+                "a term whose f32 value the two compute in another order "
+                "may round one ulp apart, and short causal rows make terms "
+                "of ~1") for g, got, want, sp in zip(
+                    ("dq", "dk", "dv"), (dq, dk, dv), plain, spread)]
+        # K/V rows that no query of the step sees (each row of q sits at
+        # q_off + i, each key at k_off + j; a ring rank at its block's)
+        n, r = ring or (1, 0)
+        gq, gk = S // n, sk // n
+        dead = torch.zeros(sk, dtype=torch.bool, device="cuda")
+        for g in range(n):
+            src = (g - r) % n
+            last_row = q_off + g * gq + gq - 1
+            keys = k_off + src * gk + torch.arange(gk, device="cuda")
+            dead[src * gk:(src + 1) * gk] = keys > last_row
+        require(f"{name}: K/V rows no query sees get dk = dv = 0 bitwise "
+                f"({int(dead.sum())} rows)",
+                bool((dk[:, :, dead] == 0).all())
+                and bool((dv[:, :, dead] == 0).all()))
+        return errs
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (64, 128):
+            S = 256
+            for label, q_off, k_off in (("full", S, 0), ("diagonal", 0, 0),
+                                        ("empty", 0, S)):
+                case(f"[2,4,{S},{D}] {label} ({q_off},{k_off})",
+                     (2, 4, S, D), S, q_off, k_off, dtype)
+            case(f"[2,4,256,{D}] partial (192,0)", (2, 4, 256, D), 256, 192,
+                 0, dtype)
+            case(f"[2,4,256,{D}] Sk=512 (512,128)", (2, 4, 256, D), 512, 512,
+                 128, dtype)
+            case(f"[2,4,256,{D}] Sk=512 (0,0)", (2, 4, 256, D), 512, 0, 0,
+                 dtype)
+            # rows 0-31 have no live key in the first kv tile they run
+            case(f"[2,4,256,{D}] misaligned (0,32)", (2, 4, 256, D), 256, 0,
+                 32, dtype)
+    errs = []
+    for r in range(4):
+        # the main path's ring steps: [8,12,1024,64] over 4 ranks
+        errs.append(case(f"ring [8,12,1024,64] cp=4 step {r}",
+                         (8, 12, 1024, 64), 1024, 0, 0, torch.bfloat16,
+                         ring=(4, r)))
+        case(f"ring [1,2,1024,128] cp=4 step {r}", (1, 2, 1024, 128), 1024,
+             0, 0, torch.float32, ring=(4, r))
+    return {"fwd": max(e[0] for e in errs), "dq": max(e[1] for e in errs),
+            "dkv": max(max(e[2:]) for e in errs)}
 
 
 def ce_checks(rng, ce):
@@ -602,22 +774,30 @@ def bert_batch(rng, B, S, device):
 
 
 def counters(fa, ce, sd, md):
-    """The seven launch counters of the paths' kernels."""
+    """The ten launch counters of the paths' kernels."""
     return {"flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "flash_attention_block_fwd": fa.flash_attention_block,
+            "flash_attention_block_bwd_dq": fa.flash_attention_block_bwd_dq,
+            "flash_attention_block_bwd_dkv":
+                fa.flash_attention_block_bwd_dkv,
             "softmax_ce_fwd": ce.softmax_ce_fwd,
             "softmax_ce_bwd": ce.softmax_ce_bwd,
             "pack_write": sd.pack_write_kernel,
             "row_gather": md.row_gather_kernel}
 
 
+KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv", "flash_attention_block_fwd",
+                "flash_attention_block_bwd_dq",
+                "flash_attention_block_bwd_dkv", "softmax_ce_fwd",
+                "softmax_ce_bwd", "pack_write", "row_gather")
+
+
 def expect_launches(**per_run):
     """Expected launches of every counter: the named ones, 0 for the rest."""
-    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
-             "flash_attention_bwd_dkv", "softmax_ce_fwd", "softmax_ce_bwd",
-             "pack_write", "row_gather")
-    return {name: per_run.get(name, 0) for name in names}
+    return {name: per_run.get(name, 0) for name in KERNEL_NAMES}
 
 
 def run_path(label, step, fns, steps, B, expect, warmup=3, unit="samples"):
@@ -677,12 +857,13 @@ def profile_steps(label, step, steps=2, top=12):
     # kernel classes by name: the seven kernels, the id sort, cuBLAS GEMMs,
     # reductions (layer-norm moments, means, sums), copies and casts, other
     # elementwise
+    # (the block kernels are the same CUDA functions as the flash ones)
     classes = (("pack_write", ("pack_write_kernel",)),
                ("row_gather", ("row_gather_kernel",)),
                ("sort (cub radix)", ("Radix", "radix")),
-               ("flash_attention_fwd", ("flash_fwd",)),
-               ("flash_attention_bwd_dq", ("flash_bwd_dq",)),
-               ("flash_attention_bwd_dkv", ("flash_bwd_dkv",)),
+               ("flash fwd (+ block)", ("flash_fwd",)),
+               ("flash dQ (+ block)", ("flash_bwd_dq",)),
+               ("flash dK/dV (+ block)", ("flash_bwd_dkv",)),
                ("softmax_ce_fwd", ("_ce_fwd_kernel",)),
                ("softmax_ce_bwd", ("_ce_bwd_kernel",)),
                ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -1251,6 +1432,373 @@ def cross_device_moe(ht, layers, md, rng, seed):
             errs[name] <= 1e-4)
 
 
+# -- the context-parallel Llama (slice F1) ------------------------------------
+
+def ring_checks(rng, fa, ht_parallel, cp=4):
+    """Phase 2e: ``ring_attention`` over a cp-position mesh on the card (the
+    blockwise kernels, one launch a ring step) against the single-device
+    flash kernel on the global sequence, causal: the output and the three
+    gradients through autograd, from the same q, k, v and cotangent."""
+    mesh = ht_parallel.make_mesh({"cp": cp},
+                                 devices=[torch.device("cuda", 0)] * cp)
+    # bf16 gradients: the ring rounds each step's part to bf16 (half an
+    # ulp, at most 2^-9 of the part) before its f32 sum, the single kernel
+    # its f32 total once; parts may cancel, so the bound scales with the
+    # sum of their sizes: 2^-8 sum_r |part_r| (a factor 2 for dS roundings
+    # that flip inside a part) beside BWD_TOL's rounding of dS and P~
+    tol = {torch.bfloat16: (
+        (1e-2, "each ring step's o is rounded to bf16 before the f32 "
+         "logaddexp combine, then the sum once more: two roundings of "
+         "2^-9 relative beside the single kernel's one, with P in bf16 in "
+         "both", 2.0 ** -6), None),
+        torch.float32: (
+        (1e-5, "f32 throughout; the ring sums its blocks' softmax in "
+         "another order", 1e-5),
+        (1e-4, "f32 throughout; the ring sums over blocks in another "
+         "order", 1e-4))}
+    for (B, H, S, D), dtype in (((2, 12, 1024, 64), torch.bfloat16),
+                                ((1, 4, 1024, 128), torch.float32)):
+        q, k, v, g = (randn(rng, (B, H, S, D), dtype) for _ in range(4))
+        qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+        o_ring = ht_parallel.ring_attention(mesh, qr, kr, vr, causal=True)
+        grads_ring = torch.autograd.grad(o_ring, (qr, kr, vr), g)
+        qf, kf, vf = (t.clone().requires_grad_() for t in (q, k, v))
+        o_flash = fa.flash_attention(qf, kf, vf, causal=True)
+        grads_flash = torch.autograd.grad(o_flash, (qf, kf, vf), g)
+        torch.cuda.synchronize()
+        name = f"ring cp={cp} [{B},{H},{S},{D}] {_name(dtype)} vs flash"
+        (fa_, fwhy, frt), bwd_tol = tol[dtype]
+        check(f"{name} o", o_ring, o_flash, fa_, fwhy, rtol=frt)
+        if bwd_tol is not None:
+            for gname, got, want in zip(("dq", "dk", "dv"), grads_ring,
+                                        grads_flash):
+                check(f"{name} {gname}", got, want, *bwd_tol)
+            continue
+        # the parts each ring step adds, from the single kernel's (o, lse)
+        o_f, lse_f = fa.flash_attention_fwd(q, k, v, causal=True)
+        dsum = (g.float() * o_f.float()).sum(-1)
+        parts = [fa.flash_attention_block_bwd(q, k, v, o_f, lse_f, g, 0, 0,
+                                              ring=(cp, r), dsum=dsum)
+                 for r in range(cp)]
+        atol, _, rtol = BWD_TOL[dtype]
+        for i, (gname, got, want) in enumerate(zip(
+                ("dq", "dk", "dv"), grads_ring, grads_flash)):
+            check_spread(f"{name} {gname}", got, want, atol, rtol,
+                         sum(p[i].float().abs() for p in parts),
+                         "spread = sum_r |part_r|: each step's part rounds "
+                         "to bf16 before the f32 sum, the single kernel's "
+                         "total once")
+
+
+# bench_llama's model (bench.py:346-405): vocab 32000, hidden 768, 12
+# layers, 12 heads, 4 KV heads, FFN 2048, B=8 S=1024, bf16 over f32 masters,
+# AdamW(1e-4, wd 0.01); here under a 4-position cp mesh on one card
+LLAMA = dict(V=32000, H=768, L=12, heads=12, kv=4, F=2048, B=8, S=1024, cp=4)
+# Mistral-7B's published widths (LLAMA_CONFIGS["mistral-7b"]), 2 of its 32
+# layers: hidden 4096, 32 heads, 8 KV heads (d=128), FFN 14336
+MISTRAL = dict(V=32000, H=4096, L=2, heads=32, kv=8, F=14336, B=1, S=8192,
+               cp=4)
+
+
+def build_llama(ht, models, c):
+    """bench_llama's loss graph at the widths of ``c``: (loss, ids,
+    labels)."""
+    ids = ht.placeholder_op("lm_ids", (c["B"], c["S"]), dtype=np.int32)
+    labels = ht.placeholder_op("lm_labels", (c["B"], c["S"]), dtype=np.int32)
+    cfg = models.LlamaConfig(vocab_size=c["V"], hidden_size=c["H"],
+                             num_layers=c["L"], num_heads=c["heads"],
+                             num_kv_heads=c["kv"], intermediate_size=c["F"],
+                             seq_len=c["S"])
+    return models.LlamaForCausalLM(cfg).loss(ids, labels), ids, labels
+
+
+def llama_executor(ht, models, rng, c, seed, mesh):
+    """``Executor({"train": [loss, AdamW(1e-4, wd 0.01).minimize(loss)]},
+    mesh=mesh, compute_dtype=bfloat16)`` on the card, bench_llama's feed
+    (ids, and the ids rolled by one as labels) and a step returning the
+    loss."""
+    with ht.name_scope():
+        loss, ids, labels = build_llama(ht, models, c)
+        train_op = ht.AdamWOptimizer(learning_rate=1e-4,
+                                     weight_decay=0.01).minimize(loss)
+    t0 = time.perf_counter()
+    ex = ht.Executor({"train": [loss, train_op]}, device="cuda", seed=seed,
+                     mesh=mesh, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ids_v = rng.integers(0, c["V"], (c["B"], c["S"]))
+    feed = {ids: torch.from_numpy(ids_v.astype(np.int32)).cuda(),
+            labels: torch.from_numpy(np.roll(ids_v, -1, 1).astype(
+                np.int32)).cuda()}
+
+    def step():
+        val, none = ex.run("train", feed_dict=feed)
+        if none is not None:
+            raise RuntimeError("run('train') must return [loss, None]")
+        return val
+    return ex, step, init_s
+
+
+def llama_paths(ht, models, ht_parallel, fns, rng, steps, seed):
+    """Phase 3e: bench_llama's Llama trained under a 4-position cp mesh on
+    the card (the flash ring: 4 block launches of each kernel a layer)
+    and without a mesh (the single-device flash kernels), from the same
+    params; then 2 layers at Mistral-7B's widths at S=8192 under cp=4.
+    Returns {label: (ms/step, launches)}."""
+    out = {}
+    c = LLAMA
+    tokens = c["B"] * c["S"]
+    cuda = torch.device("cuda", 0)
+    mesh = ht_parallel.make_mesh({"cp": c["cp"]}, devices=[cuda] * c["cp"])
+    L = c["L"]
+    for label, m, expect in (
+            ("llama cp=4 path", mesh, expect_launches(
+                flash_attention_block_fwd=L * c["cp"] * steps,
+                flash_attention_block_bwd_dq=L * c["cp"] * steps,
+                flash_attention_block_bwd_dkv=L * c["cp"] * steps,
+                softmax_ce_fwd=steps, softmax_ce_bwd=steps)),
+            ("llama mesh-less path", None, expect_launches(
+                flash_attention_fwd=L * steps,
+                flash_attention_bwd_dq=L * steps,
+                flash_attention_bwd_dkv=L * steps,
+                softmax_ce_fwd=steps, softmax_ce_bwd=steps))):
+        # the same seed gives both executors the same params and batch
+        ex, step, init_s = llama_executor(
+            ht, models, np.random.default_rng(seed + 9), c, seed, m)
+        log(f"{label}: Llama V={c['V']} H={c['H']} L={L} heads "
+            f"{c['heads']}/{c['kv']} FFN {c['F']} B={c['B']} S={c['S']}, "
+            f"bf16 over f32 masters, AdamW(1e-4, wd 0.01), mesh "
+            f"{m.shape if m is not None else None}, "
+            f"{sum(p.numel() for p in ex.params.values())} params, init "
+            f"{init_s:.1f} s")
+        losses, ms, launches = run_path(label, step, fns, steps, tokens,
+                                        expect, unit="tokens")
+        profile_steps(label, step, steps=1)
+        out[label] = (ms, launches, losses[0])
+        ex.close()
+        del ex, step
+        torch.cuda.empty_cache()
+    (ms_cp, _, first_cp), (ms_sd, _, first_sd) = out.values()
+    log(f"llama paths: cp=4 {ms_cp:.3f} ms/step ({tokens * 1000 / ms_cp:.1f}"
+        f" tokens/s), mesh-less {ms_sd:.3f} ms/step "
+        f"({tokens * 1000 / ms_sd:.1f} tokens/s), ratio "
+        f"{ms_cp / ms_sd:.3f}; first losses {first_cp:.6f} (cp) and "
+        f"{first_sd:.6f}")
+    # the step is host-bound and its time moves from window to window: time
+    # the two paths again in turns (cp, mesh-less, mesh-less, cp)
+    exs = {label: llama_executor(ht, models, np.random.default_rng(seed),
+                                 c, seed, m)
+           for label, m in (("cp=4", mesh), ("mesh-less", None))}
+    for _, step, _ in exs.values():
+        for _ in range(3):
+            step()
+    turns = {label: [] for label in exs}
+    for label in ("cp=4", "mesh-less", "mesh-less", "cp=4"):
+        turns[label].append(time_ms(exs[label][1], steps, warmup=0))
+    log("llama paths in turns (cp, mesh-less, mesh-less, cp), ms/step: "
+        + "; ".join(f"{label} {' '.join(f'{t:.3f}' for t in ts)}"
+                    for label, ts in turns.items()))
+    for ex, _, _ in exs.values():
+        ex.close()
+    del exs
+    torch.cuda.empty_cache()
+    check("llama first-step loss, cp=4 ring vs mesh-less (same params and "
+          "batch)", torch.tensor(first_cp), torch.tensor(first_sd), 2e-2,
+          "bf16 activations; the ring's attention rounds in other places "
+          "than the single-device kernel")
+
+    w = MISTRAL
+    mesh = ht_parallel.make_mesh({"cp": w["cp"]}, devices=[cuda] * w["cp"])
+    ex, step, init_s = llama_executor(ht, models, rng, w, seed, mesh)
+    log(f"mistral-width witness: H={w['H']} heads {w['heads']}/{w['kv']} "
+        f"(d={w['H'] // w['heads']}) FFN {w['F']} V={w['V']}, {w['L']} of "
+        f"32 layers, B={w['B']} S={w['S']} cp={w['cp']} (local "
+        f"{w['S'] // w['cp']}), bf16 over f32 masters, AdamW, "
+        f"{sum(p.numel() for p in ex.params.values())} params, init "
+        f"{init_s:.1f} s")
+    n = w["L"] * w["cp"] * 3
+    _, ms_w, _ = run_path(
+        "mistral-width witness", step, fns, 3, w["B"] * w["S"],
+        expect_launches(flash_attention_block_fwd=n,
+                        flash_attention_block_bwd_dq=n,
+                        flash_attention_block_bwd_dkv=n, softmax_ce_fwd=3,
+                        softmax_ce_bwd=3), warmup=1, unit="tokens")
+    out["mistral-width witness"] = (ms_w, None, None)
+    ex.close()
+    del ex, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def block_times(rng, fa):
+    """The blockwise kernels at the witness's block shape, q [1,32,2048,128]
+    bf16 against K/V of the same shape, for the full, diagonal and empty
+    blocks: each kernel, its plain version, its bound (the live (row, key)
+    pairs of this block) and one PyTorch library call (the yardstick;
+    nothing on the path calls it): scaled_dot_product_attention non-causal
+    for the full block, causal for the diagonal, and its backward.  Then
+    the main path's ring-step launch, [8,12,1024,64] over 4 ranks, averaged
+    over the 4 steps.  Returns {case: {kernel: times}}."""
+    B, H, S, D = 1, 32, 2048, 128
+    bf = torch.bfloat16
+    q, k, v, do = (torch.randn(B, H, S, D, device="cuda", dtype=bf)
+                   for _ in range(4))
+    n = q.numel()
+    pairs = {"full": S * S, "diagonal": S * (S + 1) // 2, "empty": 0}
+    offsets = {"full": (S, 0), "diagonal": (0, 0), "empty": (0, S)}
+    small = B * H * S * 4
+    out = {}
+    for case, (q_off, k_off) in offsets.items():
+        fwd = lambda: fa.flash_attention_block(  # noqa: E731
+            q, k, v, q_off, k_off)
+        o, lse = fwd()
+        dsum = (do.float() * o.float()).sum(-1)
+        # the backward takes a live lse for every row (an empty block's
+        # rows take the diagonal's, as the ring's combined lse would)
+        if case == "empty":
+            lse = fa.flash_attention_block(q, k, v, 0, 0)[1]
+        calls = {
+            "flash_attention_block_fwd": (fwd, lambda: (
+                fa.flash_attention_block_plain(q, k, v, q_off, k_off))),
+            "flash_attention_block_bwd_dq": (
+                lambda: fa.flash_attention_block_bwd_dq(
+                    q, k, v, do, lse, dsum, q_off, k_off),
+                lambda: fa.flash_attention_block_bwd_plain(
+                    q, k, v, do, lse, dsum, q_off, k_off)),
+            "flash_attention_block_bwd_dkv": (
+                lambda: fa.flash_attention_block_bwd_dkv(
+                    q, k, v, do, lse, dsum, q_off, k_off),
+                lambda: fa.flash_attention_block_bwd_plain(
+                    q, k, v, do, lse, dsum, q_off, k_off))}
+        lib = {}
+        if case != "empty":
+            causal = case == "diagonal"
+            lib["fwd"] = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal), 20)
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            o_lib = F.scaled_dot_product_attention(qg, kg, vg,
+                                                   is_causal=causal)
+            lib["bwd"] = time_ms(lambda: torch.autograd.grad(
+                o_lib, (qg, kg, vg), do, retain_graph=True), 20)
+            del qg, kg, vg, o_lib
+        p = pairs[case]
+        bounds = {"flash_attention_block_fwd": bound(
+                      4 * n * 2 + small, 4 * B * H * p * D, bf),
+                  "flash_attention_block_bwd_dq": bound(
+                      5 * n * 2 + 2 * small, 6 * B * H * p * D, bf),
+                  "flash_attention_block_bwd_dkv": bound(
+                      6 * n * 2 + 2 * small, 8 * B * H * p * D, bf)}
+        out[case] = {}
+        for name, (kern, plain) in calls.items():
+            r = dict(ms=time_ms(kern, 20), plain_ms=time_ms(plain, 3),
+                     bound=bounds[name],
+                     library_ms=lib.get("fwd" if name.endswith("fwd")
+                                        else "bwd"))
+            out[case][name] = r
+            lib_s = ("null" if r["library_ms"] is None
+                     else f"{r['library_ms']:.4f} ms")
+            log(f"kernel {name} {case} block q [{B},{H},{S},{D}] bf16 at "
+                f"({q_off},{k_off}): {r['ms']:.4f} ms, bound "
+                f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), plain "
+                f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention"
+                f"{'' if name.endswith('fwd') else ' backward'} "
+                f"{'(causal) ' if case == 'diagonal' else ''}{lib_s}")
+        del o, lse, dsum
+    del q, k, v, do
+
+    # the main path's launches: one ring step over 4 ranks each
+    c = LLAMA
+    shape = (c["B"], c["heads"], c["S"], c["H"] // c["heads"])
+    q, k, v, do = (torch.randn(*shape, device="cuda", dtype=bf)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    dsum = (do.float() * o.float()).sum(-1)
+    ring = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for r in range(c["cp"]):
+        kw = dict(ring=(c["cp"], r))
+        ring["fwd"] += time_ms(lambda: fa.flash_attention_block(
+            q, k, v, 0, 0, **kw), 20) / c["cp"]
+        ring["dq"] += time_ms(lambda: fa.flash_attention_block_bwd_dq(
+            q, k, v, do, lse, dsum, 0, 0, **kw), 20) / c["cp"]
+        ring["dkv"] += time_ms(lambda: fa.flash_attention_block_bwd_dkv(
+            q, k, v, do, lse, dsum, 0, 0, **kw), 20) / c["cp"]
+    log(f"kernel block ring-step launch {list(shape)} bf16 cp={c['cp']}, "
+        f"mean over the {c['cp']} steps: fwd {ring['fwd']:.4f} ms, dq "
+        f"{ring['dq']:.4f} ms, dkv {ring['dkv']:.4f} ms (a step's 4 ranks "
+        f"together; the causal work of all steps is one causal attention "
+        f"of the global sequence)")
+    out["ring step"] = ring
+    return out
+
+
+def cross_device_llama(ht, models, ht_parallel, fns, rng, seed):
+    """One f32 training step of a small Llama (2 layers, hidden 256, 4
+    heads, 2 KV heads, V=32000, B=2, S=1024) under cp=4 from the same
+    params on the card (the blockwise kernels, the CE kernels) and on the
+    CPU (their plain versions): loss, gradients and each param's change."""
+    c = dict(V=32000, H=256, L=2, heads=4, kv=2, F=512, B=2, S=1024)
+    with ht.name_scope():
+        loss, ids, labels = build_llama(ht, models, c)
+        xs = ht.graph_variables([loss], trainable_only=True)
+        grads = ht.gradients(loss, xs)
+        train_op = ht.AdamWOptimizer(learning_rate=1e-4, weight_decay=0.01
+                                     ).apply_gradients(list(zip(grads, xs)))
+    nodes = {"train": [loss, train_op, *grads]}
+    ex_gpu = ht.Executor(nodes, device="cuda", seed=seed + 10,
+                         mesh=ht_parallel.make_mesh(
+                             {"cp": 4}, devices=[torch.device("cuda", 0)] * 4))
+    ex_cpu = ht.Executor(nodes, device="cpu", seed=seed + 11,
+                         mesh=ht_parallel.make_mesh({"cp": 4},
+                                                    devices=["cpu"] * 4))
+    ex_cpu.load_state_dict(ex_gpu.state_dict())
+    init = {k: v.cpu() for k, v in ex_cpu.params.items()}
+    ids_v = rng.integers(0, c["V"], (c["B"], c["S"]))
+    feed = {ids: torch.from_numpy(ids_v.astype(np.int32)),
+            labels: torch.from_numpy(np.roll(ids_v, -1, 1).astype(np.int32))}
+    before = {name: fn.launches for name, fn in fns.items()}
+    out_gpu = ex_gpu.run("train", feed_dict=feed)
+    launches = {name: fn.launches - before[name] for name, fn in fns.items()}
+    out_cpu = ex_cpu.run("train", feed_dict=feed)
+    torch.cuda.synchronize()
+    require(f"cross-device Llama: the card's step launched the block "
+            f"kernels 8/8/8 ({launches})",
+            launches == expect_launches(
+                flash_attention_block_fwd=8, flash_attention_block_bwd_dq=8,
+                flash_attention_block_bwd_dkv=8, softmax_ce_fwd=1,
+                softmax_ce_bwd=1))
+    check("cross-device f32 Llama cp=4 train loss (card kernels vs CPU "
+          "plain)", out_gpu[0].cpu(), out_cpu[0], 1e-5,
+          "f32 on both sides; a loss of ~10.4 whose 32000-way logsumexp "
+          "and mean over 2048 tokens sum in another order (1e-6 relative)")
+    scale = max(g.abs().max().item() for g in out_cpu[2:])
+    bad = [v.name for v, g_gpu, g_cpu in zip(xs, out_gpu[2:], out_cpu[2:])
+           if not ((g_gpu.cpu() - g_cpu).abs() - 1e-3 * g_cpu.abs()).max()
+           .item() <= 1e-5 * scale]
+    worst = max((g_gpu.cpu() - g_cpu).abs().max().item()
+                for g_gpu, g_cpu in zip(out_gpu[2:], out_cpu[2:]))
+    require(f"cross-device f32 Llama gradients of {len(xs)} params: "
+            f"max_abs_err={worst:.3e} tol=1e-5*{scale:.3e} + 1e-3*|g| (f32 "
+            "on both sides; the ring, the GEMMs and the CE sum in another "
+            f"order) {'bad: ' + str(bad) if bad else ''}", not bad)
+    errs = {}
+    for name, before_p in init.items():
+        change_cpu = ex_cpu.params[name] - before_p
+        change_gpu = ex_gpu.params[name].cpu() - before_p
+        errs[name] = ((change_gpu - change_cpu).norm()
+                      / change_cpu.norm()).item()
+    name = max(errs, key=errs.get)
+    err = max((ex_gpu.params[k].cpu() - v).abs().max().item()
+              for k, v in ex_cpu.params.items())
+    require(f"cross-device Llama params after one AdamW step: worst change "
+            f"error {errs[name]:.3e} ({name}) in the 2-norm, relative, tol "
+            f"1e-3, and max_abs_err {err:.3e} tol 2e-4 (2 lr): the first "
+            "step moves an entry by lr*g/(|g|+1e-8), which shifts by "
+            "percents of lr where |g| is within ~10x of eps, as in the k "
+            "projection's smallest gradients, for gradient differences "
+            "inside the tolerance above", errs[name] <= 1e-3 and err <= 2e-4)
+    ex_gpu.close()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1263,6 +1811,7 @@ def main():
     import hetu_tpu_torch as ht
     import hetu_tpu_torch.layers as layers
     import hetu_tpu_torch.models as models
+    import hetu_tpu_torch.parallel as htp
     from hetu_tpu_torch.ops.kernels import build
     from hetu_tpu_torch.ops.kernels import flash_attention as fa
     from hetu_tpu_torch.ops.kernels import softmax_ce as ce
@@ -1287,6 +1836,8 @@ def main():
     dropout_checks(rng, fa)
     fwd_err = flash_fwd_checks(rng, fa)
     bwd_err = flash_bwd_checks(rng, fa)
+    block_err = block_checks(rng, fa)
+    ring_checks(rng, fa, htp)
     ce_err, ce_bwd_err = ce_checks(rng, ce)
     pw_err = pack_write_checks(rng, sd)
     packed_lookup_checks(rng, sd)
@@ -1361,6 +1912,10 @@ def main():
     if failures:
         log(f"FAILED: {failures}")
         return 1
+    llama = llama_paths(ht, models, htp, fns, rng, steps, args.seed)
+    if failures:
+        log(f"FAILED: {failures}")
+        return 1
 
     times = kernel_times(rng, fa, ce, B, S)
     torch.cuda.empty_cache()
@@ -1369,6 +1924,9 @@ def main():
     cross_device(ht, models, rng, args.seed)
     cross_device_ctr(ht, models, rng, args.seed)
     cross_device_moe(ht, layers, md, rng, args.seed)
+    blocks = block_times(rng, fa)
+    times.update(blocks["full"])
+    cross_device_llama(ht, models, htp, fns, rng, args.seed)
     if failures:
         log(f"FAILED: {failures}")
         return 1
@@ -1384,6 +1942,15 @@ def main():
         ("flash_attention_bwd_dkv", "cuda",
          src + "csrc/flash_attention_bwd.cu",
          "hetu_tpu/ops/pallas/flash_attention.py:463", bwd_err["dkv"]),
+        ("flash_attention_block_fwd", "cuda",
+         src + "csrc/flash_attention_fwd.cu",
+         "hetu_tpu/ops/pallas/flash_attention.py:551", block_err["fwd"]),
+        ("flash_attention_block_bwd_dq", "cuda",
+         src + "csrc/flash_attention_bwd.cu",
+         "hetu_tpu/ops/pallas/flash_attention.py:568", block_err["dq"]),
+        ("flash_attention_block_bwd_dkv", "cuda",
+         src + "csrc/flash_attention_bwd.cu",
+         "hetu_tpu/ops/pallas/flash_attention.py:568", block_err["dkv"]),
         ("softmax_ce_fwd", "triton", src + "ops/kernels/softmax_ce.py",
          "hetu_tpu/ops/pallas/softmax_ce.py:109", ce_err),
         ("softmax_ce_bwd", "triton", src + "ops/kernels/softmax_ce.py",
@@ -1394,10 +1961,15 @@ def main():
          "hetu_tpu/ops/pallas/moe_dispatch.py:124", rg_err),
     ]
     # launches: each kernel's own training path (BERT, W&D at 337,000 rows
-    # for pack_write, bench_moe for row_gather); row_gather's times are the
-    # sums over one bench_moe step's three launches
+    # for pack_write, bench_moe for row_gather, the cp=4 Llama for the block
+    # kernels); row_gather's times are the sums over one bench_moe step's
+    # three launches; the block kernels' times are the full block's at the
+    # witness's block shape
+    cp_launches = llama["llama cp=4 path"][1]
     launches = dict(train_launches, pack_write=ctr[WDL_ROWS][1]["pack_write"],
-                    row_gather=moe_launches["row_gather"])
+                    row_gather=moe_launches["row_gather"],
+                    **{name: cp_launches[name] for name in KERNEL_NAMES
+                       if name.startswith("flash_attention_block")})
     times["pack_write"] = pw_times[WDL_ROWS]
     kernels = [{"name": name, "route": route, "source": source,
                 "replaces": replaces, "launches": launches[name],
@@ -1410,7 +1982,9 @@ def main():
     log(f"train path: {train_ms:.3f} ms/step; wdl path: "
         + ", ".join(f"{rows} rows {ms:.3f} ms/step"
                     for rows, (ms, _) in ctr.items())
-        + f"; moe path: {moe_ms:.3f} ms/step")
+        + f"; moe path: {moe_ms:.3f} ms/step; "
+        + "; ".join(f"{label}: {v[0]:.3f} ms/step"
+                    for label, v in llama.items()))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

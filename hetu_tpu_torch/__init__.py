@@ -7,12 +7,13 @@ passes ``device="cpu"``.  Each Pallas TPU kernel on a ported path is a
 hand-written Hopper kernel here (``ops/kernels/``, ``csrc/``).  The port
 imports nothing of JAX or of ``hetu_tpu``.
 
-Slices A1, A2, B1 and E (this package so far): BERT evaluation, the
+Slices A1, A2, B1, E and F1 (this package so far): BERT evaluation, the
 single-device BERT training step (autodiff, AdamW, dropout),
-Wide&Deep/CTR training on a packed embedding table (models/ctr.py), and
-the single-device MoE FFN training step (layers/moe.py), all through the
-Executor.  Names of later slices raise
-``NotImplementedError`` (ROADMAP.md).
+Wide&Deep/CTR training on a packed embedding table (models/ctr.py), the
+single-device MoE FFN training step (layers/moe.py), and Llama training
+under context parallelism (models/llama.py, parallel/: ring and Ulysses
+attention over a ``cp`` mesh axis), all through the Executor.  Names of
+later slices raise ``NotImplementedError`` (ROADMAP.md).
 """
 
 from __future__ import annotations

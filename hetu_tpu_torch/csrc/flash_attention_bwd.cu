@@ -20,6 +20,12 @@
 // written by exactly one block, so the result is the same run to run.
 // Causal kv tiles above the diagonal are skipped (dQ) and q tiles above it
 // are never visited (dK/dV), as at flash_attention.py:328-333 and :395-400.
+// The blockwise (ring) backward, `flash_attention_block_bwd`
+// (flash_attention.py:568), runs the same two kernels with global offsets,
+// a K/V length of its own and the ring's group layout (Blocks in
+// flash_common.cuh): the tile bounds are JAX's, clamped to [0, n], and it
+// takes the COMBINED lse of the whole ring, so P is each block's share of
+// the global softmax and a row that the block does not see has P = 0.
 // Rows whose every key was masked have lse = +1e30 from the forward, so
 // their P is 0 and they contribute no gradient.  Ragged S and d are masked
 // inside the kernels (out-of-range rows and keys get P = 0, out-of-range
@@ -77,8 +83,9 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ dsum,
                      const float* __restrict__ mask,
                      const int32_t* __restrict__ seed, bf16* __restrict__ dq,
-                     int n_bh, int H, int S, int d, int causal, float scale,
-                     float scale_log2, uint32_t thr, float inv_keep) {
+                     int n_bh, int H, Blocks bl, int d, int causal,
+                     float scale, float scale_log2, uint32_t thr,
+                     float inv_keep) {
   constexpr int ST = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
@@ -91,7 +98,7 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.y + gridDim.y * blockIdx.z;
   if (bh >= n_bh) return;  // the tail of the last z slice
   const int b = bh / H;
-  const size_t base = (size_t)bh * S * d;
+  const size_t qbase = (size_t)bh * bl.Sq * d, kbase = (size_t)bh * bl.Sk * d;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
@@ -101,32 +108,35 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t rk[2] = {0u, 0u};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const bool in = rows[i] < S;
-    lse2[i] = in ? lse[(size_t)bh * S + rows[i]] * kLog2e : INFINITY;
-    dsm[i] = in ? dsum[(size_t)bh * S + rows[i]] : 0.f;
+    const bool in = rows[i] < bl.Sq;
+    lse2[i] = in ? lse[(size_t)bh * bl.Sq + rows[i]] * kLog2e : INFINITY;
+    dsm[i] = in ? dsum[(size_t)bh * bl.Sq + rows[i]] : 0.f;
     if (seed) rk[i] = hetu_dropout::row_key((uint32_t)*seed, bh, rows[i]);
   }
 
-  load_tile<D>(sQ, q + base, q0, S, d);
-  load_tile<D>(sdO, dout + base, q0, S, d);
+  load_tile<D>(sQ, q + qbase, q0, bl.Sq, d);
+  load_tile<D>(sdO, dout + qbase, q0, bl.Sq, d);
 
   float acc[D / 8][4];
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd)
     acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
 
-  int n_tiles = (S + kTile - 1) / kTile;
-  if (causal) n_tiles = min(n_tiles, (q0 + kTile - 1) / kTile + 1);
+  // the K/V rows [kb, ke) of this tile's group's block, its live kv tiles
+  // (JAX's hi, flash_attention.py:330), a key's position minus a row's
+  const int kb = bl.kv_begin(q0 / bl.gq()), ke = kb + bl.gk();
+  const int n_tiles = kv_tiles(bl, causal, q0, kTile, kb, kTile);
+  const int dpos = bl.k_off - bl.q_off;
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kTile;
+    const int k0 = kb + j * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(sK, k + base, k0, S, d);
-    load_tile<D>(sV, v + base, k0, S, d);
+    load_tile<D>(sK, k + kbase, k0, ke, d);
+    load_tile<D>(sV, v + kbase, k0, ke, d);
     if (threadIdx.x < kTile) {
       const int key = k0 + threadIdx.x;
       sMask[threadIdx.x] =
-          key >= S ? -INFINITY
-                   : (mask ? mask[(size_t)b * S + key] * kLog2e : 0.f);
+          key >= ke ? -INFINITY
+                    : (mask ? mask[(size_t)b * bl.Sk + key] * kLog2e : 0.f);
     }
     __syncthreads();
 
@@ -156,7 +166,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1, col = n * 8 + 2 * t + (e & 1);
         float x = s[n][e] * scale_log2 + sMask[col];
-        if (causal && k0 + col > rows[i]) x = -INFINITY;
+        if (causal && k0 + col + dpos > rows[i]) x = -INFINITY;
         const float p = exp2f(x - lse2[i]);
         float dpv = dp[n][e];
         if (seed)
@@ -188,8 +198,8 @@ __global__ void __launch_bounds__(kThreads)
     if (col >= d) continue;
 #pragma unroll
     for (int i = 0; i < 2; ++i)
-      if (rows[i] < S)
-        *reinterpret_cast<uint32_t*>(dq + base + (size_t)rows[i] * d + col) =
+      if (rows[i] < bl.Sq)
+        *reinterpret_cast<uint32_t*>(dq + qbase + (size_t)rows[i] * d + col) =
             pack_bf16(acc[nd][2 * i] * scale, acc[nd][2 * i + 1] * scale);
   }
 }
@@ -204,7 +214,7 @@ __global__ void __launch_bounds__(kThreads)
                       const float* __restrict__ mask,
                       const int32_t* __restrict__ seed,
                       bf16* __restrict__ dk, bf16* __restrict__ dv, int n_bh,
-                      int H, int S, int d, int causal, float scale,
+                      int H, Blocks bl, int d, int causal, float scale,
                       float scale_log2, uint32_t thr, float inv_keep) {
   constexpr int ST = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -220,7 +230,7 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.y + gridDim.y * blockIdx.z;
   if (bh >= n_bh) return;
   const int b = bh / H;
-  const size_t base = (size_t)bh * S * d;
+  const size_t qbase = (size_t)bh * bl.Sq * d, kbase = (size_t)bh * bl.Sk * d;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   // this warp's 16 keys are the rows of its fragments: keys[0], keys[1]
@@ -228,13 +238,13 @@ __global__ void __launch_bounds__(kThreads)
   float kmask[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
-    kmask[i] = keys[i] >= S
+    kmask[i] = keys[i] >= bl.Sk
                    ? -INFINITY
-                   : (mask ? mask[(size_t)b * S + keys[i]] * kLog2e : 0.f);
+                   : (mask ? mask[(size_t)b * bl.Sk + keys[i]] * kLog2e : 0.f);
   const uint32_t sd = seed ? (uint32_t)*seed : 0u;
 
-  load_tile<D>(sK, k + base, k0, S, d);
-  load_tile<D>(sV, v + base, k0, S, d);
+  load_tile<D>(sK, k + kbase, k0, bl.Sk, d);
+  load_tile<D>(sV, v + kbase, k0, bl.Sk, d);
 
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
@@ -242,18 +252,23 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[nd][e] = dv_acc[nd][e] = 0.f;
 
-  const int n_q = (S + kTile - 1) / kTile;
-  // q tiles wholly above the diagonal see none of this kv tile
-  for (int i = causal ? k0 / kTile : 0; i < n_q; ++i) {
-    const int q0 = i * kTile;
+  // the q rows [qb, qe) of the group that attends this tile's block; q
+  // tiles wholly above the diagonal see none of this kv tile, and with
+  // none left the tile writes dk = dv = 0
+  const int qb = bl.q_begin(k0 / bl.gk()), qe = qb + bl.gq();
+  const int n_q = (bl.gq() + kTile - 1) / kTile;
+  const int dpos = bl.k_off - bl.q_off;
+  for (int i = first_q_tile(bl, causal, k0, qb, kTile); i < n_q; ++i) {
+    const int q0 = qb + i * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(sQ, q + base, q0, S, d);
-    load_tile<D>(sdO, dout + base, q0, S, d);
+    load_tile<D>(sQ, q + qbase, q0, qe, d);
+    load_tile<D>(sdO, dout + qbase, q0, qe, d);
     if (threadIdx.x < kTile) {
       const int row = q0 + threadIdx.x;
-      const bool in = row < S;
-      sLse2[threadIdx.x] = in ? lse[(size_t)bh * S + row] * kLog2e : INFINITY;
-      sD[threadIdx.x] = in ? dsum[(size_t)bh * S + row] : 0.f;
+      const bool in = row < qe;
+      sLse2[threadIdx.x] =
+          in ? lse[(size_t)bh * bl.Sq + row] * kLog2e : INFINITY;
+      sD[threadIdx.x] = in ? dsum[(size_t)bh * bl.Sq + row] : 0.f;
       sRk[threadIdx.x] = seed ? hetu_dropout::row_key(sd, bh, row) : 0u;
     }
     __syncthreads();
@@ -284,7 +299,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1, qc = n * 8 + 2 * t + (e & 1);
         float x = s[n][e] * scale_log2 + kmask[i];
-        if (causal && keys[i] > q0 + qc) x = -INFINITY;
+        if (causal && keys[i] + dpos > q0 + qc) x = -INFINITY;
         const float p = exp2f(x - sLse2[qc]);
         float pd = p, dpv = dp[n][e];
         if (seed) {
@@ -330,8 +345,8 @@ __global__ void __launch_bounds__(kThreads)
     if (col >= d) continue;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      if (keys[i] >= S) continue;
-      const size_t off = base + (size_t)keys[i] * d + col;
+      if (keys[i] >= bl.Sk) continue;
+      const size_t off = kbase + (size_t)keys[i] * d + col;
       *reinterpret_cast<uint32_t*>(dk + off) = pack_bf16(
           dk_acc[nd][2 * i] * scale, dk_acc[nd][2 * i + 1] * scale);
       *reinterpret_cast<uint32_t*>(dv + off) =
@@ -389,8 +404,9 @@ __global__ void __launch_bounds__(kThreads)
                       const float* __restrict__ dsum,
                       const float* __restrict__ mask,
                       const int32_t* __restrict__ seed, T* __restrict__ dq,
-                      int n_bh, int H, int S, int d, int causal, float scale,
-                      float scale_log2, uint32_t thr, float inv_keep) {
+                      int n_bh, int H, Blocks bl, int d, int causal,
+                      float scale, float scale_log2, uint32_t thr,
+                      float inv_keep) {
   constexpr int DP = 32 * NC;
   extern __shared__ __align__(16) float smem_f[];
   float* sQ = smem_f;                        // [kDqRows][DP + 1]
@@ -403,35 +419,37 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.y + gridDim.y * blockIdx.z;
   if (bh >= n_bh) return;
   const int b = bh / H;
-  const size_t base = (size_t)bh * S * d;
+  const size_t qbase = (size_t)bh * bl.Sq * d, kbase = (size_t)bh * bl.Sk * d;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  load_rows_f32<T, NC>(sQ, q + base, q0, kDqRows, S, d);
-  load_rows_f32<T, NC>(sdO, dout + base, q0, kDqRows, S, d);
+  load_rows_f32<T, NC>(sQ, q + qbase, q0, kDqRows, bl.Sq, d);
+  load_rows_f32<T, NC>(sdO, dout + qbase, q0, kDqRows, bl.Sq, d);
   float lse2[kDqRowsPerWarp], dsm[kDqRowsPerWarp], acc[kDqRowsPerWarp][NC];
   uint32_t rk[kDqRowsPerWarp];
 #pragma unroll
   for (int rr = 0; rr < kDqRowsPerWarp; ++rr) {
     const int row = q0 + warp * kDqRowsPerWarp + rr;
-    lse2[rr] = row < S ? lse[(size_t)bh * S + row] * kLog2e : INFINITY;
-    dsm[rr] = row < S ? dsum[(size_t)bh * S + row] : 0.f;
+    lse2[rr] = row < bl.Sq ? lse[(size_t)bh * bl.Sq + row] * kLog2e : INFINITY;
+    dsm[rr] = row < bl.Sq ? dsum[(size_t)bh * bl.Sq + row] : 0.f;
     rk[rr] = seed ? hetu_dropout::row_key((uint32_t)*seed, bh, row) : 0u;
 #pragma unroll
     for (int i = 0; i < NC; ++i) acc[rr][i] = 0.f;
   }
 
-  int n_tiles = (S + kDqKeys - 1) / kDqKeys;
-  if (causal) n_tiles = min(n_tiles, (q0 + kDqRows - 1) / kDqKeys + 1);
+  // the K/V rows [kb, ke) of this tile's group's block (as flash_bwd_dq_mma)
+  const int kb = bl.kv_begin(q0 / bl.gq()), ke = kb + bl.gk();
+  const int n_tiles = kv_tiles(bl, causal, q0, kDqRows, kb, kDqKeys);
+  const int dpos = bl.k_off - bl.q_off;
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kDqKeys;
+    const int k0 = kb + j * kDqKeys;
     __syncthreads();
-    load_rows_f32<T, NC>(sK, k + base, k0, kDqKeys, S, d);
-    load_rows_f32<T, NC>(sV, v + base, k0, kDqKeys, S, d);
+    load_rows_f32<T, NC>(sK, k + kbase, k0, kDqKeys, ke, d);
+    load_rows_f32<T, NC>(sV, v + kbase, k0, kDqKeys, ke, d);
     if (threadIdx.x < kDqKeys) {
       const int key = k0 + threadIdx.x;
       sMask[threadIdx.x] =
-          key >= S ? -INFINITY
-                   : (mask ? mask[(size_t)b * S + key] * kLog2e : 0.f);
+          key >= ke ? -INFINITY
+                    : (mask ? mask[(size_t)b * bl.Sk + key] * kLog2e : 0.f);
     }
     __syncthreads();
 #pragma unroll
@@ -447,7 +465,7 @@ __global__ void __launch_bounds__(kThreads)
         dpv = fmaf(dor[c], vr[c], dpv);
       }
       float x = sc * scale_log2 + sMask[lane];
-      if (causal && k0 + lane > q0 + rl) x = -INFINITY;
+      if (causal && k0 + lane + dpos > q0 + rl) x = -INFINITY;
       const float p = exp2f(x - lse2[rr]);
       if (seed)
         dpv = hetu_dropout::keep(rk[rr], k0 + lane, thr) ? dpv * inv_keep
@@ -466,12 +484,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int rr = 0; rr < kDqRowsPerWarp; ++rr) {
     const int row = q0 + warp * kDqRowsPerWarp + rr;
-    if (row >= S) continue;
+    if (row >= bl.Sq) continue;
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       const int c = lane + 32 * i;
       if (c < d)
-        dq[base + (size_t)row * d + c] = from_f32<T>(acc[rr][i] * scale);
+        dq[qbase + (size_t)row * d + c] = from_f32<T>(acc[rr][i] * scale);
     }
   }
 }
@@ -484,7 +502,7 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ dsum,
                        const float* __restrict__ mask,
                        const int32_t* __restrict__ seed, T* __restrict__ dk,
-                       T* __restrict__ dv, int n_bh, int H, int S, int d,
+                       T* __restrict__ dv, int n_bh, int H, Blocks bl, int d,
                        int causal, float scale, float scale_log2,
                        uint32_t thr, float inv_keep) {
   constexpr int DP = 32 * NC;
@@ -501,34 +519,39 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.y + gridDim.y * blockIdx.z;
   if (bh >= n_bh) return;
   const int b = bh / H;
-  const size_t base = (size_t)bh * S * d;
+  const size_t qbase = (size_t)bh * bl.Sq * d, kbase = (size_t)bh * bl.Sk * d;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const uint32_t sd = seed ? (uint32_t)*seed : 0u;
 
-  load_rows_f32<T, NC>(sK, k + base, k0, kDkvKeys, S, d);
-  load_rows_f32<T, NC>(sV, v + base, k0, kDkvKeys, S, d);
+  load_rows_f32<T, NC>(sK, k + kbase, k0, kDkvKeys, bl.Sk, d);
+  load_rows_f32<T, NC>(sV, v + kbase, k0, kDkvKeys, bl.Sk, d);
   float kmask[kDkvKeysPerWarp], dk_acc[kDkvKeysPerWarp][NC],
       dv_acc[kDkvKeysPerWarp][NC];
 #pragma unroll
   for (int kk = 0; kk < kDkvKeysPerWarp; ++kk) {
     const int key = k0 + warp * kDkvKeysPerWarp + kk;
-    kmask[kk] = key >= S ? -INFINITY
-                         : (mask ? mask[(size_t)b * S + key] * kLog2e : 0.f);
+    kmask[kk] = key >= bl.Sk
+                    ? -INFINITY
+                    : (mask ? mask[(size_t)b * bl.Sk + key] * kLog2e : 0.f);
 #pragma unroll
     for (int i = 0; i < NC; ++i) dk_acc[kk][i] = dv_acc[kk][i] = 0.f;
   }
 
-  const int n_q = (S + kDkvRows - 1) / kDkvRows;
-  for (int it = causal ? k0 / kDkvRows : 0; it < n_q; ++it) {
-    const int q0 = it * kDkvRows;
+  // the q rows [qb, qe) that attend this tile's block (as flash_bwd_dkv_mma)
+  const int qb = bl.q_begin(k0 / bl.gk()), qe = qb + bl.gq();
+  const int n_q = (bl.gq() + kDkvRows - 1) / kDkvRows;
+  const int dpos = bl.k_off - bl.q_off;
+  for (int it = first_q_tile(bl, causal, k0, qb, kDkvRows); it < n_q; ++it) {
+    const int q0 = qb + it * kDkvRows;
     __syncthreads();
-    load_rows_f32<T, NC>(sQ, q + base, q0, kDkvRows, S, d);
-    load_rows_f32<T, NC>(sdO, dout + base, q0, kDkvRows, S, d);
+    load_rows_f32<T, NC>(sQ, q + qbase, q0, kDkvRows, qe, d);
+    load_rows_f32<T, NC>(sdO, dout + qbase, q0, kDkvRows, qe, d);
     if (threadIdx.x < kDkvRows) {
       const int row = q0 + threadIdx.x;
-      const bool in = row < S;
-      sLse2[threadIdx.x] = in ? lse[(size_t)bh * S + row] * kLog2e : INFINITY;
-      sD[threadIdx.x] = in ? dsum[(size_t)bh * S + row] : 0.f;
+      const bool in = row < qe;
+      sLse2[threadIdx.x] =
+          in ? lse[(size_t)bh * bl.Sq + row] * kLog2e : INFINITY;
+      sD[threadIdx.x] = in ? dsum[(size_t)bh * bl.Sq + row] : 0.f;
       sRk[threadIdx.x] = seed ? hetu_dropout::row_key(sd, bh, row) : 0u;
     }
     __syncthreads();
@@ -545,7 +568,7 @@ __global__ void __launch_bounds__(kThreads)
         dpv = fmaf(dor[c], vr[c], dpv);
       }
       float x = sc * scale_log2 + kmask[kk];
-      if (causal && key > q0 + lane) x = -INFINITY;
+      if (causal && key + dpos > q0 + lane) x = -INFINITY;
       const float p = exp2f(x - sLse2[lane]);
       float pd = p;
       if (seed) {
@@ -575,13 +598,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int kk = 0; kk < kDkvKeysPerWarp; ++kk) {
     const int key = k0 + warp * kDkvKeysPerWarp + kk;
-    if (key >= S) continue;
+    if (key >= bl.Sk) continue;
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       const int c = lane + 32 * i;
       if (c >= d) continue;
-      dk[base + (size_t)key * d + c] = from_f32<T>(dk_acc[kk][i] * scale);
-      dv[base + (size_t)key * d + c] = from_f32<T>(dv_acc[kk][i]);
+      dk[kbase + (size_t)key * d + c] = from_f32<T>(dk_acc[kk][i] * scale);
+      dv[kbase + (size_t)key * d + c] = from_f32<T>(dv_acc[kk][i]);
     }
   }
 }
@@ -594,7 +617,9 @@ struct Args {
   const float *lse, *dsum, *mask;
   const int32_t* seed;
   void *dq, *dk, *dv;
-  int B, H, S, d, causal;
+  int B, H;
+  Blocks bl;
+  int d, causal;
   float scale, scale_log2;
   uint32_t thr;
   float inv_keep;
@@ -612,12 +637,12 @@ cudaError_t launch_dq_mma(const Args& a) {
   const size_t smem = dq_smem_bytes<D>();
   cudaError_t err = prepare(flash_bwd_dq_mma<D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid = bh_grid((a.S + kTile - 1) / kTile, a.B * a.H);
+  const dim3 grid = bh_grid((a.bl.Sq + kTile - 1) / kTile, a.B * a.H);
   if (grid.z > 65535) return cudaErrorInvalidValue;
   flash_bwd_dq_mma<D><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
-      a.dsum, a.mask, a.seed, static_cast<bf16*>(a.dq), a.B * a.H, a.H, a.S,
+      a.dsum, a.mask, a.seed, static_cast<bf16*>(a.dq), a.B * a.H, a.H, a.bl,
       a.d, a.causal, a.scale, a.scale_log2, a.thr, a.inv_keep);
   return cudaGetLastError();
 }
@@ -627,13 +652,13 @@ cudaError_t launch_dkv_mma(const Args& a) {
   const size_t smem = dkv_smem_bytes<D>();
   cudaError_t err = prepare(flash_bwd_dkv_mma<D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid = bh_grid((a.S + kTile - 1) / kTile, a.B * a.H);
+  const dim3 grid = bh_grid((a.bl.Sk + kTile - 1) / kTile, a.B * a.H);
   if (grid.z > 65535) return cudaErrorInvalidValue;
   flash_bwd_dkv_mma<D><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
       a.dsum, a.mask, a.seed, static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.B * a.H, a.H, a.S, a.d, a.causal, a.scale,
+      static_cast<bf16*>(a.dv), a.B * a.H, a.H, a.bl, a.d, a.causal, a.scale,
       a.scale_log2, a.thr, a.inv_keep);
   return cudaGetLastError();
 }
@@ -643,12 +668,12 @@ cudaError_t launch_dq_simt(const Args& a) {
   const size_t smem = dq_simt_smem_bytes<NC>();
   cudaError_t err = prepare(flash_bwd_dq_simt<T, NC>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid = bh_grid((a.S + kDqRows - 1) / kDqRows, a.B * a.H);
+  const dim3 grid = bh_grid((a.bl.Sq + kDqRows - 1) / kDqRows, a.B * a.H);
   if (grid.z > 65535) return cudaErrorInvalidValue;
   flash_bwd_dq_simt<T, NC><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.dsum, a.mask, a.seed, static_cast<T*>(a.dq), a.B * a.H, a.H, a.S,
+      a.dsum, a.mask, a.seed, static_cast<T*>(a.dq), a.B * a.H, a.H, a.bl,
       a.d, a.causal, a.scale, a.scale_log2, a.thr, a.inv_keep);
   return cudaGetLastError();
 }
@@ -658,13 +683,13 @@ cudaError_t launch_dkv_simt(const Args& a) {
   const size_t smem = dkv_simt_smem_bytes<NC>();
   cudaError_t err = prepare(flash_bwd_dkv_simt<T, NC>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid = bh_grid((a.S + kDkvKeys - 1) / kDkvKeys, a.B * a.H);
+  const dim3 grid = bh_grid((a.bl.Sk + kDkvKeys - 1) / kDkvKeys, a.B * a.H);
   if (grid.z > 65535) return cudaErrorInvalidValue;
   flash_bwd_dkv_simt<T, NC><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.dsum, a.mask, a.seed, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-      a.B * a.H, a.H, a.S, a.d, a.causal, a.scale, a.scale_log2, a.thr,
+      a.B * a.H, a.H, a.bl, a.d, a.causal, a.scale, a.scale_log2, a.thr,
       a.inv_keep);
   return cudaGetLastError();
 }
@@ -691,7 +716,7 @@ cudaError_t launch_mma(int which, const Args& a) {
 }
 
 cudaError_t dispatch(int which, int is_bf16, const Args& a) {
-  if (a.B <= 0 || a.H <= 0 || a.S <= 0 || a.d <= 0)
+  if (a.B <= 0 || a.H <= 0 || a.d <= 0 || !valid_blocks(a.bl, kTile))
     return cudaErrorInvalidValue;
   if (is_bf16 && a.d % 8 == 0 && a.d <= 128) {
     switch ((a.d + 15) / 16) {
@@ -721,8 +746,8 @@ extern "C" int hetu_flash_attention_bwd_dq(
     const int32_t* seed, void* dq, int B, int H, int S, int d, int causal,
     float scale, uint32_t thr, float inv_keep, int is_bf16, void* stream) {
   const Args a{q, k, v, dout, lse, dsum, mask, seed, dq, nullptr, nullptr,
-               B, H, S, d, causal, scale, scale * kLog2e, thr, inv_keep,
-               static_cast<cudaStream_t>(stream)};
+               B, H, self_attention(S), d, causal, scale, scale * kLog2e, thr,
+               inv_keep, static_cast<cudaStream_t>(stream)};
   return (int)dispatch(0, is_bf16, a);
 }
 
@@ -733,7 +758,27 @@ extern "C" int hetu_flash_attention_bwd_dkv(
     int causal, float scale, uint32_t thr, float inv_keep, int is_bf16,
     void* stream) {
   const Args a{q, k, v, dout, lse, dsum, mask, seed, nullptr, dk, dv,
-               B, H, S, d, causal, scale, scale * kLog2e, thr, inv_keep,
-               static_cast<cudaStream_t>(stream)};
+               B, H, self_attention(S), d, causal, scale, scale * kLog2e, thr,
+               inv_keep, static_cast<cudaStream_t>(stream)};
   return (int)dispatch(1, is_bf16, a);
+}
+
+// The blockwise backward (`flash_attention_block_bwd`, flash_attention.py
+// :568): one ring step's dQ (which = 0) or dK/dV (which = 1) from the
+// ring's combined lse and D = rowsum(dO * O), both [B*H, Sq] f32.  q, dout,
+// dq: [B*H, Sq, d]; k, v, dk, dv: [B*H, Sk, d]; groups, step and offsets as
+// in hetu_flash_attention_block_fwd.  dK/dV land at the rows of their own
+// K/V block, so a ring adds each step's into the block's sum as it is; a
+// K/V tile that no query of its step sees writes dk = dv = 0.
+extern "C" int hetu_flash_attention_block_bwd(
+    int which, const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* dsum, void* dq, void* dk, void* dv, int B,
+    int H, int Sq, int Sk, int d, int n, int r, int q_off, int k_off,
+    int causal, float scale, int is_bf16, void* stream) {
+  if (which != 0 && which != 1) return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, dout, lse, dsum, nullptr, nullptr, dq, dk, dv, B, H,
+               Blocks{Sq, Sk, n, r, q_off, k_off, kBlockEmptyLse}, d, causal,
+               scale, scale * kLog2e, 0u, 1.f,
+               static_cast<cudaStream_t>(stream)};
+  return (int)dispatch(which, is_bf16, a);
 }

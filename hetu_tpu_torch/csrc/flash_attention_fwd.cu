@@ -29,6 +29,18 @@
 // the hash of dropout_hash.cuh on global (seed, bh, row, col), which the
 // backward kernels replay; the seed is read from device memory, so drawing
 // it costs the host no sync.
+//
+// Blockwise (ring) attention: the same kernels also replace the TPU
+// kernel's offset path, `flash_attention_block` (flash_attention.py:551,
+// `_fwd` with offsets=[q_off, k_off] and empty_lse_neg=True).  Causal
+// exclusion compares global positions, the K/V length is its own, and a
+// row with no live key in the block gets o = 0 and lse = -1e30, so the
+// ring's logaddexp combine gives the block no weight; a block wholly above
+// the diagonal runs no kv tile and still writes both.  One launch serves
+// every rank of one ring step: q and K/V hold the ranks' blocks in order
+// along the sequence and the rows of rank g read the K/V block that r
+// rotations of the ring brought it, (g - r) mod n (Blocks in
+// flash_common.cuh), so the ring moves no bytes on one card.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,8 +76,8 @@ __global__ void __launch_bounds__(kThreads)
                   const float* __restrict__ mask,
                   const int32_t* __restrict__ seed,
                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                  int n_bh, int H, int S, int d, int causal, float scale_log2,
-                  uint32_t keep_threshold, float inv_keep) {
+                  int n_bh, int H, Blocks bl, int d, int causal,
+                  float scale_log2, uint32_t keep_threshold, float inv_keep) {
   constexpr int ST = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -80,7 +92,7 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.y + gridDim.y * blockIdx.z;
   if (bh >= n_bh) return;  // the tail of the last z slice
   const int b = bh / H;
-  const size_t base = (size_t)bh * S * d;
+  const size_t qbase = (size_t)bh * bl.Sq * d, kbase = (size_t)bh * bl.Sk * d;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;  // mma fragment row group / column
   const int r0 = warp * 16 + g;           // this thread's rows: r0, r0 + 8
@@ -91,7 +103,7 @@ __global__ void __launch_bounds__(kThreads)
     rk[1] = hetu_dropout::row_key((uint32_t)*seed, bh, row_b);
   }
 
-  load_tile<D>(sQ, q + base, q0, S, d);
+  load_tile<D>(sQ, q + qbase, q0, bl.Sq, d);
   __syncthreads();
   uint32_t qa[D / 16][4];  // A fragments of this warp's 16 query rows
 #pragma unroll
@@ -104,17 +116,21 @@ __global__ void __launch_bounds__(kThreads)
     acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
   float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
 
-  int n_tiles = (S + kBN - 1) / kBN;
-  if (causal) n_tiles = min(n_tiles, (q0 + kBM - 1) / kBN + 1);
+  // the K/V rows [kb, ke) of this tile's group's block, its live kv tiles,
+  // and a key's position minus a row's at equal indices
+  const int kb = bl.kv_begin(q0 / bl.gq()), ke = kb + bl.gk();
+  const int n_tiles = kv_tiles(bl, causal, q0, kBM, kb, kBN);
+  const int dpos = bl.k_off - bl.q_off;
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBN;
+    const int k0 = kb + j * kBN;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(sK, k + base, k0, S, d);
-    load_tile<D>(sV, v + base, k0, S, d);
+    load_tile<D>(sK, k + kbase, k0, ke, d);
+    load_tile<D>(sV, v + kbase, k0, ke, d);
     if (threadIdx.x < kBN) {
       const int key = k0 + threadIdx.x;
       sMask[threadIdx.x] =
-          key >= S ? -INFINITY : (mask ? mask[(size_t)b * S + key] * kLog2e : 0.f);
+          key >= ke ? -INFINITY
+                    : (mask ? mask[(size_t)b * bl.Sk + key] * kLog2e : 0.f);
     }
     __syncthreads();
 
@@ -137,7 +153,7 @@ __global__ void __launch_bounds__(kThreads)
         const int col = n * 8 + 2 * t + (e & 1);
         const int row = e < 2 ? row_a : row_b;
         float x = s[n][e] * scale_log2 + sMask[col];
-        if (causal && k0 + col > row) x = -INFINITY;
+        if (causal && k0 + col + dpos > row) x = -INFINITY;
         s[n][e] = x;
         tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
       }
@@ -198,22 +214,22 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 2; ++i) {
     const bool empty = l[i] == 0.f;
     inv[i] = empty ? 0.f : 1.f / l[i];
-    row_lse[i] = empty ? kEmptyLse : m[i] * kLn2 + logf(l[i]);
+    row_lse[i] = empty ? bl.empty_lse : m[i] * kLn2 + logf(l[i]);
   }
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd) {
     const int col = nd * 8 + 2 * t;
     if (col >= d) continue;
-    if (row_a < S)
-      *reinterpret_cast<uint32_t*>(o + base + (size_t)row_a * d + col) =
+    if (row_a < bl.Sq)
+      *reinterpret_cast<uint32_t*>(o + qbase + (size_t)row_a * d + col) =
           pack_bf16(acc[nd][0] * inv[0], acc[nd][1] * inv[0]);
-    if (row_b < S)
-      *reinterpret_cast<uint32_t*>(o + base + (size_t)row_b * d + col) =
+    if (row_b < bl.Sq)
+      *reinterpret_cast<uint32_t*>(o + qbase + (size_t)row_b * d + col) =
           pack_bf16(acc[nd][2] * inv[1], acc[nd][3] * inv[1]);
   }
   if (t == 0) {
-    if (row_a < S) lse[(size_t)bh * S + row_a] = row_lse[0];
-    if (row_b < S) lse[(size_t)bh * S + row_b] = row_lse[1];
+    if (row_a < bl.Sq) lse[(size_t)bh * bl.Sq + row_a] = row_lse[0];
+    if (row_b < bl.Sq) lse[(size_t)bh * bl.Sq + row_b] = row_lse[1];
   }
 }
 
@@ -238,7 +254,7 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ mask,
                    const int32_t* __restrict__ seed, T* __restrict__ o,
-                   float* __restrict__ lse, int n_bh, int H, int S, int d,
+                   float* __restrict__ lse, int n_bh, int H, Blocks bl, int d,
                    int causal, float scale_log2, uint32_t keep_threshold,
                    float inv_keep) {
   constexpr int DP = 32 * NC;
@@ -252,13 +268,13 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.y + gridDim.y * blockIdx.z;
   if (bh >= n_bh) return;
   const int b = bh / H;
-  const size_t base = (size_t)bh * S * d;
+  const size_t qbase = (size_t)bh * bl.Sq * d, kbase = (size_t)bh * bl.Sk * d;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   for (int idx = threadIdx.x; idx < kSimtBM * DP; idx += kThreads) {
     const int r = idx / DP, c = idx % DP, gr = q0 + r;
     sQ[r * (DP + 1) + c] =
-        (gr < S && c < d) ? to_f32(q[base + (size_t)gr * d + c]) : 0.f;
+        (gr < bl.Sq && c < d) ? to_f32(q[qbase + (size_t)gr * d + c]) : 0.f;
   }
   float acc[kRowsPerWarp][NC];
   float m[kRowsPerWarp], l[kRowsPerWarp];
@@ -274,21 +290,24 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < NC; ++i) acc[rr][i] = 0.f;
   }
 
-  int n_tiles = (S + kSimtBN - 1) / kSimtBN;
-  if (causal) n_tiles = min(n_tiles, (q0 + kSimtBM - 1) / kSimtBN + 1);
+  // the K/V rows [kb, ke) of this tile's group's block (as flash_fwd_mma)
+  const int kb = bl.kv_begin(q0 / bl.gq()), ke = kb + bl.gk();
+  const int n_tiles = kv_tiles(bl, causal, q0, kSimtBM, kb, kSimtBN);
+  const int dpos = bl.k_off - bl.q_off;
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kSimtBN;
+    const int k0 = kb + j * kSimtBN;
     __syncthreads();
     for (int idx = threadIdx.x; idx < kSimtBN * DP; idx += kThreads) {
       const int r = idx / DP, c = idx % DP, gr = k0 + r;
-      const bool in = gr < S && c < d;
-      sK[r * (DP + 1) + c] = in ? to_f32(k[base + (size_t)gr * d + c]) : 0.f;
-      sV[r * DP + c] = in ? to_f32(v[base + (size_t)gr * d + c]) : 0.f;
+      const bool in = gr < ke && c < d;
+      sK[r * (DP + 1) + c] = in ? to_f32(k[kbase + (size_t)gr * d + c]) : 0.f;
+      sV[r * DP + c] = in ? to_f32(v[kbase + (size_t)gr * d + c]) : 0.f;
     }
     if (threadIdx.x < kSimtBN) {
       const int key = k0 + threadIdx.x;
       sMask[threadIdx.x] =
-          key >= S ? -INFINITY : (mask ? mask[(size_t)b * S + key] * kLog2e : 0.f);
+          key >= ke ? -INFINITY
+                    : (mask ? mask[(size_t)b * bl.Sk + key] * kLog2e : 0.f);
     }
     __syncthreads();
 #pragma unroll
@@ -299,7 +318,7 @@ __global__ void __launch_bounds__(kThreads)
       float sc = 0.f;
       for (int c = 0; c < d; ++c) sc = fmaf(qr[c], kr[c], sc);
       float x = sc * scale_log2 + sMask[lane];
-      if (causal && k0 + lane > q0 + rl) x = -INFINITY;
+      if (causal && k0 + lane + dpos > q0 + rl) x = -INFINITY;
       const float m_new = fmaxf(m[rr], warp_max(x));
       float p = exp2f(x - m_new);
       const float alpha = exp2f(m[rr] - m_new);
@@ -324,73 +343,99 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int row = q0 + warp * kRowsPerWarp + rr;
-    if (row >= S) continue;
+    if (row >= bl.Sq) continue;
     const bool empty = l[rr] == 0.f;
     const float inv = empty ? 0.f : 1.f / l[rr];
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       const int c = lane + 32 * i;
-      if (c < d) o[base + (size_t)row * d + c] = from_f32<T>(acc[rr][i] * inv);
+      if (c < d) o[qbase + (size_t)row * d + c] = from_f32<T>(acc[rr][i] * inv);
     }
     if (lane == 0)
-      lse[(size_t)bh * S + row] =
-          empty ? kEmptyLse : m[rr] * kLn2 + logf(l[rr]);
+      lse[(size_t)bh * bl.Sq + row] =
+          empty ? bl.empty_lse : m[rr] * kLn2 + logf(l[rr]);
   }
 }
 
+struct Args {
+  const void *q, *k, *v;
+  const float* mask;
+  const int32_t* seed;
+  void* o;
+  float* lse;
+  int B, H;
+  Blocks bl;
+  int d, causal;
+  float scale_log2;
+  uint32_t thr;
+  float inv_keep;
+  cudaStream_t stream;
+};
+
 template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       const float* mask, const int32_t* seed, void* o,
-                       float* lse, int B, int H, int S, int d, int causal,
-                       float scale_log2, uint32_t thr, float inv_keep,
-                       cudaStream_t stream) {
+cudaError_t launch_mma(const Args& a) {
   const size_t smem = mma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid = bh_grid((S + kBM - 1) / kBM, B * H);
+  const dim3 grid = bh_grid((a.bl.Sq + kBM - 1) / kBM, a.B * a.H);
   if (grid.z > 65535) return cudaErrorInvalidValue;
-  flash_fwd_mma<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), mask, seed,
-      static_cast<__nv_bfloat16*>(o), lse, B * H, H, S, d, causal,
-      scale_log2, thr, inv_keep);
+  flash_fwd_mma<D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), a.mask, a.seed,
+      static_cast<__nv_bfloat16*>(a.o), a.lse, a.B * a.H, a.H, a.bl, a.d,
+      a.causal, a.scale_log2, a.thr, a.inv_keep);
   return cudaGetLastError();
 }
 
 template <typename T, int NC>
-cudaError_t launch_simt(const void* q, const void* k, const void* v,
-                        const float* mask, const int32_t* seed, void* o,
-                        float* lse, int B, int H, int S, int d, int causal,
-                        float scale_log2, uint32_t thr, float inv_keep,
-                        cudaStream_t stream) {
+cudaError_t launch_simt(const Args& a) {
   const size_t smem = simt_smem_bytes<NC>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_simt<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid = bh_grid((S + kSimtBM - 1) / kSimtBM, B * H);
+  const dim3 grid = bh_grid((a.bl.Sq + kSimtBM - 1) / kSimtBM, a.B * a.H);
   if (grid.z > 65535) return cudaErrorInvalidValue;
-  flash_fwd_simt<T, NC><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, seed, static_cast<T*>(o), lse, B * H,
-      H, S, d, causal, scale_log2, thr, inv_keep);
+  flash_fwd_simt<T, NC><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.mask, a.seed, static_cast<T*>(a.o),
+      a.lse, a.B * a.H, a.H, a.bl, a.d, a.causal, a.scale_log2, a.thr,
+      a.inv_keep);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_simt(const void* q, const void* k, const void* v,
-                          const float* mask, const int32_t* seed, void* o,
-                          float* lse, int B, int H, int S, int d, int causal,
-                          float scale_log2, uint32_t thr, float inv_keep,
-                          cudaStream_t st) {
-  if (d <= 32) return launch_simt<T, 1>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
-  if (d <= 64) return launch_simt<T, 2>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
-  if (d <= 128) return launch_simt<T, 4>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
-  if (d <= 256) return launch_simt<T, 8>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
-  if (d <= 512) return launch_simt<T, 16>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
+cudaError_t dispatch_simt(const Args& a) {
+  if (a.d <= 32) return launch_simt<T, 1>(a);
+  if (a.d <= 64) return launch_simt<T, 2>(a);
+  if (a.d <= 128) return launch_simt<T, 4>(a);
+  if (a.d <= 256) return launch_simt<T, 8>(a);
+  if (a.d <= 512) return launch_simt<T, 16>(a);
   return cudaErrorInvalidValue;
+}
+
+// the tensor-core kernel for bf16 heads of d <= 128 (d % 8 == 0), the
+// plain-FMA kernel otherwise
+cudaError_t dispatch(int is_bf16, const Args& a) {
+  if (a.B <= 0 || a.H <= 0 || a.d <= 0 || !valid_blocks(a.bl, kTile))
+    return cudaErrorInvalidValue;
+  if (is_bf16 && a.d % 8 == 0 && a.d <= 128) {
+    switch ((a.d + 15) / 16) {
+      case 1: return launch_mma<16>(a);
+      case 2: return launch_mma<32>(a);
+      case 3: return launch_mma<48>(a);
+      case 4: return launch_mma<64>(a);
+      case 5: return launch_mma<80>(a);
+      case 6: return launch_mma<96>(a);
+      case 7: return launch_mma<112>(a);
+      default: return launch_mma<128>(a);
+    }
+  }
+  if (is_bf16) return dispatch_simt<__nv_bfloat16>(a);
+  return dispatch_simt<float>(a);
 }
 
 // the keep bits of an [n_bh, Sq, Sk] attention-probability tensor, one
@@ -438,22 +483,23 @@ extern "C" int hetu_flash_attention_fwd(const void* q, const void* k,
                                         int d, int causal, float scale,
                                         uint32_t thr, float inv_keep,
                                         int is_bf16, void* stream) {
-  const float scale_log2 = scale * kLog2e;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || H <= 0 || S <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
-  if (is_bf16 && d % 8 == 0 && d <= 128) {
-    switch ((d + 15) / 16) {
-      case 1: return (int)launch_mma<16>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
-      case 2: return (int)launch_mma<32>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
-      case 3: return (int)launch_mma<48>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
-      case 4: return (int)launch_mma<64>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
-      case 5: return (int)launch_mma<80>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
-      case 6: return (int)launch_mma<96>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
-      case 7: return (int)launch_mma<112>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
-      default: return (int)launch_mma<128>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
-    }
-  }
-  if (is_bf16)
-    return (int)dispatch_simt<__nv_bfloat16>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
-  return (int)dispatch_simt<float>(q, k, v, mask, seed, o, lse, B, H, S, d, causal, scale_log2, thr, inv_keep, st);
+  const Args a{q, k, v, mask, seed, o, lse, B, H, self_attention(S), d,
+               causal, scale * kLog2e, thr, inv_keep,
+               static_cast<cudaStream_t>(stream)};
+  return (int)dispatch(is_bf16, a);
+}
+
+// The blockwise API (`flash_attention_block`, flash_attention.py:551): q
+// [B*H, Sq, d] against K/V [B*H, Sk, d] in n groups at ring step r (see
+// Blocks; n = 1, r = 0 for one block pair), causal by the global positions
+// q_off + row and k_off + key; o normalised, lse = -1e30 and o = 0 on a row
+// with no live key.  No mask, no dropout.
+extern "C" int hetu_flash_attention_block_fwd(
+    const void* q, const void* k, const void* v, void* o, float* lse, int B,
+    int H, int Sq, int Sk, int d, int n, int r, int q_off, int k_off,
+    int causal, float scale, int is_bf16, void* stream) {
+  const Args a{q, k, v, nullptr, nullptr, o, lse, B, H,
+               Blocks{Sq, Sk, n, r, q_off, k_off, kBlockEmptyLse}, d, causal,
+               scale * kLog2e, 0u, 1.f, static_cast<cudaStream_t>(stream)};
+  return (int)dispatch(is_bf16, a);
 }

@@ -15,9 +15,77 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegBig = -1e30f;   // floor of the running max (TPU: m0)
 constexpr float kEmptyLse = 1e30f;  // lse of a row with no live key
+// lse of a row with no live key in one K/V block of the blockwise (ring)
+// API: weightless under the logaddexp combine
+constexpr float kBlockEmptyLse = -1e30f;
 
 constexpr int kTile = 64;      // rows of a tensor-core tile (q or kv)
 constexpr int kThreads = 128;  // 4 warps per block
+
+// Which rows of a launch attend which.  Self-attention (`_fwd` without
+// offsets): one group, Sq == Sk, no offsets, empty rows at lse = +1e30.
+// Blockwise (ring) attention: q holds n groups of Sq / n rows and K/V n
+// groups of Sk / n rows along the sequence, and the q rows of group g
+// attend the K/V rows of group (g - r) mod n -- step r of a ring over n
+// ranks, one launch for all of them -- causally by global position:
+// q row i sits at q_off + i and K/V row j at k_off + j.  With n > 1 each
+// group is a whole number of every kernel's tiles (the wrappers check),
+// so no tile straddles two groups.
+struct Blocks {
+  int Sq, Sk;        // rows of q and of K/V per (batch, head)
+  int n, r;          // groups along the sequence, and the ring step
+  int q_off, k_off;  // global positions of q row 0 and of K/V row 0
+  float empty_lse;   // lse of a row with no live key
+
+  __device__ __forceinline__ int gq() const { return Sq / n; }
+  __device__ __forceinline__ int gk() const { return Sk / n; }
+  // first K/V row of the block that the q rows of group g attend
+  __device__ __forceinline__ int kv_begin(int g) const {
+    return ((g - r) % n + n) % n * gk();
+  }
+  // first q row of the group that attends the K/V block b
+  __device__ __forceinline__ int q_begin(int b) const {
+    return (b + r) % n * gq();
+  }
+};
+
+inline Blocks self_attention(int S) { return {S, S, 1, 0, 0, 0, kEmptyLse}; }
+
+// The kv tiles of `tile` keys from K/V row kb that the q rows [q0, q0 +
+// rows) attend: all of the block's, or causally those up to the last
+// row's position.  JAX's clamp(0, (q_pos - k_pos) // tile + 1, n) with a
+// floor division (flash_attention.py:142, :330): C's `/` truncates toward
+// zero, so a negative numerator, a block wholly above the diagonal, gives
+// 0 tiles explicitly.
+__device__ __forceinline__ int kv_tiles(const Blocks& bl, int causal, int q0,
+                                        int rows, int kb, int tile) {
+  int n = (bl.gk() + tile - 1) / tile;
+  if (causal) {
+    const int last = bl.q_off + q0 + rows - 1 - (bl.k_off + kb);
+    n = last < 0 ? 0 : min(n, last / tile + 1);
+  }
+  return n;
+}
+
+// The first q tile of `tile` rows from q row qb that sees the key row k0
+// (JAX's dK/dV start, flash_attention.py:398, clamped to [0, n_q]): tiles
+// wholly above the diagonal are never visited.
+__device__ __forceinline__ int first_q_tile(const Blocks& bl, int causal,
+                                            int k0, int qb, int tile) {
+  if (!causal) return 0;
+  const int num = bl.k_off + k0 - (bl.q_off + qb);
+  return num <= 0 ? 0 : min(num / tile, (bl.gq() + tile - 1) / tile);
+}
+
+// The block layout a blockwise entry point was given, or false: n >= 1
+// groups that divide both lengths into whole tiles of `align` rows (any
+// lengths with one group).
+inline bool valid_blocks(const Blocks& bl, int align) {
+  if (bl.Sq <= 0 || bl.Sk <= 0 || bl.n <= 0 || bl.r < 0 || bl.r >= bl.n)
+    return false;
+  if (bl.n == 1) return true;
+  return bl.Sq % (bl.n * align) == 0 && bl.Sk % (bl.n * align) == 0;
+}
 
 // C += A B on the tensor cores: A 16x16 bf16 (row), B 16x8 bf16 (col),
 // C 16x8 f32.  Fragment of lane (g = lane / 4, t = lane % 4): A holds rows

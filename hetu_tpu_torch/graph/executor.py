@@ -16,6 +16,11 @@ cast.  Updates that ops record (optimizer steps, the
 BERT MLM overflow counter) are written back into ``params`` in each
 param's dtype, and each optimizer's state is kept in ``opt_state``.
 
+A ``mesh`` (parallel/mesh.py) whose positions all sit on the executor's
+device gives the ops a ``cp`` axis to lower long-context attention onto
+(ring or, with ``cp_impl="ulysses"``, Ulysses attention); the params stay
+whole on that device, as the JAX executor replicates them over the mesh.
+
 Guards, numerics, save/resume with RNG state, data parallelism and the
 parameter server are later slices (ROADMAP.md).  Those arguments raise
 ``NotImplementedError`` here rather than being ignored.
@@ -36,14 +41,13 @@ _EVAL_NAMES = ("validate", "inference", "eval")
 
 # Executor keyword arguments of the JAX package that belong to later slices
 _LATER = {
-    "mesh": "slice F (parallelism beyond DP)",
     "dist_strategy": "slice A3 (data parallelism) / slice F",
     "comm_mode": "slice A3 (data parallelism) / slice B2 (parameter server)",
     "pipeline": "slice F (pipeline parallelism)",
     "step_guard": "slice G (resilience)",
     "numerics": "slice G (telemetry)",
-    "cp_impl": "slice F (context parallelism)",
 }
+_CP_IMPLS = ("ring", "ulysses")
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -139,7 +143,8 @@ class SubExecutor:
         ctx = TraceContext(
             generator=ex.generator, training=self.training,
             master_params=ex.params if ex.compute_dtype is not None
-            else None)
+            else None, mesh=ex.mesh,
+            cp_impl=ex.config.get("cp_impl", "ring"))
         ctx.opt_state = ex.opt_state
         with (torch.enable_grad() if self.has_grads or self.training
               else torch.inference_mode()):
@@ -185,7 +190,7 @@ class Executor:
     def __init__(self, eval_node_dict, ctx=None, seed=0, mesh=None,
                  dist_strategy=None, comm_mode=None, compute_dtype=None,
                  device=None, **kwargs):
-        later = dict(kwargs, mesh=mesh, dist_strategy=dist_strategy,
+        later = dict(kwargs, dist_strategy=dist_strategy,
                      comm_mode=comm_mode)
         for key, value in later.items():
             if key in _LATER and value is not None:
@@ -196,6 +201,15 @@ class Executor:
             eval_node_dict = {"default": list(eval_node_dict)}
         self.eval_node_dict = {k: list(v) for k, v in eval_node_dict.items()}
         self.device = resolve_device(device)
+        if mesh is not None:
+            from ..parallel.mesh import mesh_device, same_device
+            dev = mesh_device(mesh, "Executor(mesh=...)")
+            if not same_device(dev, self.device):
+                raise ValueError(f"the mesh's device {dev} is not the "
+                                 f"executor's device {self.device}")
+        if kwargs.get("cp_impl", "ring") not in _CP_IMPLS:
+            raise ValueError(f"cp_impl must be one of {_CP_IMPLS}")
+        self.mesh = mesh
         self.compute_dtype = (torch_dtype(compute_dtype)
                               if compute_dtype is not None else None)
         self.config = kwargs

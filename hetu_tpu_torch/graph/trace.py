@@ -31,12 +31,19 @@ class TraceContext:
     * ``master_params`` — with a ``compute_dtype``, the executor's
       full-precision {var_name: value}, which optimizers update instead of
       the cast working values bound in the env.
+    * ``mesh`` / ``cp_impl`` — the executor's device mesh (or None) and the
+      long-context lowering over its ``cp`` axis: ``"ring"`` (K/V rotate
+      around the ranks) or ``"ulysses"`` (all-to-all head parallelism);
+      ``Executor(mesh=, cp_impl=)`` sets them.
     """
 
     def __init__(self, generator: torch.Generator | None = None,
-                 training: bool = False, master_params=None):
+                 training: bool = False, master_params=None, mesh=None,
+                 cp_impl: str = "ring"):
         self.generator = generator
         self.training = training
+        self.mesh = mesh
+        self.cp_impl = cp_impl
         self.updates = {}        # VariableOp -> new value
         self.opt_state = {}      # {optimizer_op_name: state} (input)
         self.new_opt_state = {}  # {optimizer_op_name: state} (output)

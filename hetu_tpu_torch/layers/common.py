@@ -1,6 +1,7 @@
-"""Linear, LayerNorm and Embedding (port of ``hetu_tpu/layers/common.py``,
-BERT subset).  Parameter names and layouts match the JAX package: a
-Linear weight is [in, out] and the graph computes ``x @ w``."""
+"""Linear, LayerNorm, RMSNorm and Embedding (port of
+``hetu_tpu/layers/common.py``, the BERT and Llama subset).  Parameter
+names and layouts match the JAX package: a Linear weight is [in, out] and
+the graph computes ``x @ w``."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ from .base import BaseLayer, fresh_name
 from .. import initializers as init
 from ..graph.node import VariableOp
 from ..ops import (matmul_op, linear_op, layer_normalization_op,
-                   embedding_lookup_op)
+                   rms_norm_op, embedding_lookup_op)
 
 
 class Linear(BaseLayer):
@@ -41,6 +42,16 @@ class LayerNorm(BaseLayer):
 
     def __call__(self, x):
         return layer_normalization_op(x, self.scale, self.bias, eps=self.eps)
+
+
+class RMSNorm(BaseLayer):
+    def __init__(self, hidden_size, eps=1e-6, name=None):
+        name = fresh_name(name or "rmsnorm")
+        self.scale = VariableOp(f"{name}_scale", (hidden_size,), init.ones())
+        self.eps = eps
+
+    def __call__(self, x):
+        return rms_norm_op(x, self.scale, eps=self.eps)
 
 
 class Embedding(BaseLayer):

@@ -4,3 +4,5 @@ from .bert import (BertConfig, BertModel, BertForPreTraining,
 from .ctr import (SparseFeatureEmbedding, WDL, DeepFM, DCN, DLRM,
                   FMSecondOrderOp, CrossLayerOp, DLRMInteractionOp,
                   make_wdl_scorer)
+from .llama import (LlamaConfig, LLAMA_CONFIGS, LlamaMLP, LlamaDecoderLayer,
+                    LlamaModel, LlamaForCausalLM, BaichuanForCausalLM)

@@ -1,10 +1,12 @@
 from .base import SimpleOp, simple_op
 from .math import (add_op, sub_op, mul_op, div_op, addbyconst_op,
-                   mulbyconst_op, tanh_op, gelu_op, relu_op, sigmoid_op)
+                   mulbyconst_op, tanh_op, gelu_op, relu_op, sigmoid_op,
+                   silu_op)
 from .linalg import matmul_op, linear_op, transpose_op
 from .transform import array_reshape_op, broadcastto_op, slice_op, concat_op
 from .reduce import reduce_mean_op, reduce_sum_op
-from .nn import layer_normalization_op, DropoutOp, dropout_op
+from .nn import layer_normalization_op, rms_norm_op, DropoutOp, dropout_op
+from .rotary import rotary_embedding_op, repeat_kv_op
 from .embedding import embedding_lookup_op, packed_embedding_lookup_op
 from .losses import (softmax_cross_entropy_sparse_op,
                      binarycrossentropywithlogits_op, mse_loss_op)

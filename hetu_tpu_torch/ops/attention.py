@@ -10,6 +10,12 @@ an int32 tensor on the device from the executor's generator (no host sync
 per layer); the composition drops the probabilities by a uniform draw from
 the same generator, as the JAX composition does with a Bernoulli mask
 (the JAX package also takes the composition for dropout on the CPU).
+
+Long context: when the executor's mesh has a ``cp`` axis larger than 1,
+causal, mask-free, dropout-free attention lowers to ring attention
+(parallel/context_parallel.py; the blockwise flash kernels on the card), or
+to Ulysses attention with ``cp_impl="ulysses"`` when the heads divide the
+axis, under exactly the JAX package's conditions.
 """
 
 from __future__ import annotations
@@ -43,6 +49,24 @@ class ScaledDotProductAttentionOp(Op):
         keep = self.dropout_keep if ctx.training else 1.0
         d = q.shape[-1]
         scale = self.scale if self.scale is not None else 1.0 / (d ** 0.5)
+        mesh = ctx.mesh
+        # the sequence dim is context-sharded over the mesh's 'cp' axis;
+        # dropout and masks stay on the single-device paths below
+        if (mesh is not None and "cp" in mesh.shape
+                and mesh.shape["cp"] > 1 and mask is None
+                and self.dropout_keep >= 1.0 and q.dim() == 4
+                and q.shape == k.shape == v.shape
+                and q.shape[2] % mesh.shape["cp"] == 0
+                and ("dp" not in mesh.shape
+                     or q.shape[0] % mesh.shape["dp"] == 0)):
+            from ..parallel.context_parallel import (ring_attention,
+                                                     ulysses_attention)
+            if (ctx.cp_impl == "ulysses"
+                    and q.shape[1] % mesh.shape["cp"] == 0):
+                return ulysses_attention(mesh, q, k, v, causal=self.causal,
+                                         scale=scale)
+            return ring_attention(mesh, q, k, v, causal=self.causal,
+                                  scale=scale)
         if _use_flash(q):
             from .kernels.flash_attention import flash_attention
             seed = None

@@ -25,8 +25,17 @@ composition), and otherwise the attention of the given shapes, as if S were
 padded to the kernel's tiles with masked keys and d with zero columns.
 Every wrapper runs its plain version on a CPU tensor and on a CUDA tensor
 launches its kernel or raises.  ``FlashAttentionFn`` is the differentiable
-form (``flash_attention`` applies it); the global-offset paths of the TPU
-kernel (ring attention) arrive with slice F.
+form (``flash_attention`` applies it).
+
+The blockwise API of ring attention, ``flash_attention_block`` and
+``flash_attention_block_bwd`` (the JAX functions at lines 551 and 568, the
+same three TPU kernels run with global offsets), attends one q block to one
+K/V block of another length at global positions, and gives a row with no
+live key in the block lse = -1e30 and o = 0.  With ``ring=(n, r)`` one call
+is step r of a ring over n ranks for all of them at once: q and K/V hold
+the ranks' blocks in order along the sequence, and the rows of rank g
+attend the block of rank (g - r) mod n, the block that r rotations of the
+ring bring to rank g.  The offsets are Python ints, computed on the host.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 NEG_BIG = -1e30      # running-max floor: scores below it carry no weight
 EMPTY_LSE = 1e30     # lse of a row with no live key
+BLOCK_EMPTY_LSE = -1e30  # ... in one block of the blockwise API
 
 _FWD_SOURCE = "flash_attention_fwd.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
@@ -61,6 +71,10 @@ _SIGNATURES = {
     "hetu_flash_attention_bwd_dkv": (
         _BWD_SOURCE, [_P] * 10 + [_I] * 5 + [ctypes.c_float, ctypes.c_uint32,
                                              ctypes.c_float, _I, _P]),
+    "hetu_flash_attention_block_fwd": (
+        _FWD_SOURCE, [_P] * 5 + [_I] * 10 + [ctypes.c_float, _I, _P]),
+    "hetu_flash_attention_block_bwd": (
+        _BWD_SOURCE, [_I] + [_P] * 9 + [_I] * 10 + [ctypes.c_float, _I, _P]),
 }
 
 
@@ -168,16 +182,18 @@ def _check_seed(seed, device):
 
 # -- plain versions ----------------------------------------------------------
 
-def _scores_log2(q, k, mask, causal, scale):
+def _scores_log2(q, k, mask, causal, scale, q_off=0, k_off=0):
     """Base-2 scores in f32 with the kernels' key mask and causal
-    exclusion: [B, H, S, S]."""
-    b, h, s, d = q.shape
+    exclusion by global position (q row i at q_off + i, key j at k_off +
+    j): [B, H, Sq, Sk]."""
+    b, sq, sk = q.shape[0], q.shape[2], k.shape[2]
     s2 = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (scale * LOG2E)
     if mask is not None:
-        s2 = s2 + mask.float().reshape(b, 1, 1, s) * LOG2E
+        s2 = s2 + mask.float().reshape(b, 1, 1, sk) * LOG2E
     if causal:
-        above = torch.ones(s, s, dtype=torch.bool, device=q.device).triu(1)
-        s2 = s2.masked_fill(above, float("-inf"))
+        rows = q_off + torch.arange(sq, device=q.device)
+        keys = k_off + torch.arange(sk, device=q.device)
+        s2 = s2.masked_fill(keys[None, :] > rows[:, None], float("-inf"))
     return s2
 
 
@@ -193,10 +209,17 @@ def flash_attention_plain(q, k, v, mask=None, causal=False, scale=None,
     softmax in f32 with the kernel's masking, empty-row semantics and
     dropout (the row sums l stay un-dropped).  Returns (o in q's dtype,
     lse [B,H,S] f32)."""
-    d = q.shape[-1]
     if scale is None:
-        scale = 1.0 / d ** 0.5
-    s2 = _scores_log2(q, k, mask, causal, scale)
+        scale = 1.0 / q.shape[-1] ** 0.5
+    return _attend_plain(q, k, v, mask, causal, scale, dropout_keep, seed,
+                         0, 0, EMPTY_LSE)
+
+
+def _attend_plain(q, k, v, mask, causal, scale, dropout_keep, seed, q_off,
+                  k_off, empty_lse):
+    """(o, lse) of the forward kernel in plain PyTorch; ``empty_lse`` is
+    the lse of a row with no live key."""
+    s2 = _scores_log2(q, k, mask, causal, scale, q_off, k_off)
     m = s2.amax(dim=-1, keepdim=True).clamp_min(NEG_BIG)
     p = torch.exp2(s2 - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -205,17 +228,17 @@ def flash_attention_plain(q, k, v, mask=None, causal=False, scale=None,
         p = torch.where(keep, p / dropout_keep, 0.0)
     empty = l == 0
     o = torch.matmul(p, v.float()) / torch.where(empty, 1.0, l)
-    lse = torch.where(empty, EMPTY_LSE, m * LN2 + torch.log(l))
+    lse = torch.where(empty, empty_lse, m * LN2 + torch.log(l))
     return o.to(q.dtype), lse.squeeze(-1)
 
 
 def _bwd_plain(q, k, v, do, lse, dsum, mask, causal, scale, dropout_keep,
-               seed):
+               seed, q_off=0, k_off=0):
     """dQ, dK, dV in plain PyTorch from D = ``dsum``, as the two backward
     kernels compute them: P recomputed from (q, k, lse) in f32, dP dropped
     by the replayed mask, dS and P~ rounded to the inputs' dtype before
     their products (the TPU kernels' ``.astype``)."""
-    s2 = _scores_log2(q, k, mask, causal, scale)
+    s2 = _scores_log2(q, k, mask, causal, scale, q_off, k_off)
     p = torch.exp2(s2 - lse.float()[..., None] * LOG2E)
     dof = do.float()
     dp = torch.matmul(dof, v.float().transpose(-1, -2))
@@ -424,3 +447,201 @@ def flash_attention(q, k, v, mask=None, causal=False, scale=None,
         scale = 1.0 / q.shape[-1] ** 0.5
     return FlashAttentionFn.apply(q, k, v, mask, seed, bool(causal),
                                   float(scale), float(dropout_keep))
+
+
+# -- blockwise API (ring / context parallelism) ------------------------------
+
+def _block_sizes(sq, sk):
+    """The TPU kernel's block sizes for Sq and Sk (``_block_sizes``)."""
+    bq = next((b for b in (512, 256, 128) if sq % b == 0), None)
+    bk = next((b for b in (512, 256, 128) if sk % b == 0), None)
+    return bq, bk
+
+
+def blockwise_supported(q_shape, k_shape):
+    """The JAX gate of the blockwise kernels: 8-aligned d in [32, 512] and
+    Sq, Sk multiples of 128."""
+    d = q_shape[3]
+    bq, bk = _block_sizes(q_shape[2], k_shape[2])
+    return (d <= 512 and d % 8 == 0 and d >= 32
+            and bq is not None and bk is not None)
+
+
+def _ring(ring, sq, sk):
+    """(n, r) of ``ring`` (None: one block pair), checked against the
+    lengths: n groups that split Sq and Sk into whole 64-row tiles."""
+    n, r = (1, 0) if ring is None else (int(ring[0]), int(ring[1]))
+    if not 0 <= r < n or (n > 1 and (sq % (64 * n) or sk % (64 * n))):
+        raise ValueError(f"ring={ring}: n ranks must split Sq={sq} and "
+                         f"Sk={sk} into whole 64-row tiles, 0 <= r < n")
+    return n, r
+
+
+def _ring_pairs(n, r, sq, sk):
+    """(rows of q, rows of K/V) of each rank's block pair at ring step r:
+    rank g attends the block of rank (g - r) mod n."""
+    gq, gk = sq // n, sk // n
+    for g in range(n):
+        src = (g - r) % n
+        yield slice(g * gq, (g + 1) * gq), slice(src * gk, (src + 1) * gk)
+
+
+def flash_attention_block_plain(q, k, v, q_off, k_off, causal=True,
+                                scale=None, ring=None):
+    """The blockwise forward kernel's function in plain PyTorch: each
+    rank's pair through the forward's plain version at its global offsets,
+    empty rows at lse = -1e30.  Returns (o in q's dtype, lse [B,H,Sq])."""
+    n, r = _ring(ring, q.shape[2], k.shape[2])
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
+    o, lse = torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+    for qs, ks in _ring_pairs(n, r, q.shape[2], k.shape[2]):
+        o[:, :, qs], lse[:, :, qs] = _attend_plain(
+            q[:, :, qs], k[:, :, ks], v[:, :, ks], None, causal, scale, 1.0,
+            None, q_off + qs.start, k_off + ks.start, BLOCK_EMPTY_LSE)
+    return o, lse
+
+
+def flash_attention_block_bwd_plain(q, k, v, do, lse, dsum, q_off, k_off,
+                                    causal=True, scale=None, ring=None):
+    """The blockwise backward kernels' function in plain PyTorch: (dq, dk,
+    dv), each rank's pair through the backward's plain version; dK/dV of a
+    block land at that block's rows."""
+    n, r = _ring(ring, q.shape[2], k.shape[2])
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    for qs, ks in _ring_pairs(n, r, q.shape[2], k.shape[2]):
+        dq[:, :, qs], dk[:, :, ks], dv[:, :, ks] = _bwd_plain(
+            q[:, :, qs], k[:, :, ks], v[:, :, ks], do[:, :, qs],
+            lse[:, :, qs], dsum[:, :, qs], None, causal, scale, 1.0, None,
+            q_off + qs.start, k_off + ks.start)
+    return dq, dk, dv
+
+
+def _check_block(name, q, k, v, extra=()):
+    """Validate the CUDA inputs of a blockwise kernel; returns them
+    contiguous."""
+    if not q.is_cuda:
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: unsupported dtype {q.dtype}")
+    b, h, _, d = q.shape
+    if k.shape != v.shape or k.dim() != 4 or (k.shape[0], k.shape[1],
+                                              k.shape[3]) != (b, h, d):
+        raise TypeError(f"{name}: k and v must be [B,H,Sk,d] beside q "
+                        f"[B,H,Sq,d]; got {tuple(q.shape)}, "
+                        f"{tuple(k.shape)}, {tuple(v.shape)}")
+    for t in (k, v, *extra):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise TypeError(f"{name}: inputs must share dtype and device")
+    return [t.contiguous() for t in (q, k, v, *extra)]
+
+
+def flash_attention_block(q, k, v, q_off, k_off, *, causal=True, scale=None,
+                          ring=None):
+    """Fused attention of q [B,H,Sq,d] against one K/V block [B,H,Sk,d] at
+    the global offsets (q_off, k_off), Python ints: returns (o normalised,
+    in q's dtype, lse [B,H,Sq] f32), a row with no live key in the block
+    at lse = -1e30 and o = 0, weightless under the ring's logaddexp
+    combine.  ``ring=(n, r)``: step r of a ring over n ranks whose blocks
+    q and K/V hold in order along the sequence (module docstring)."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    n, r = _ring(ring, sq, sk)
+    if scale is None:
+        scale = 1.0 / d ** 0.5
+    if q.device.type == "cpu":
+        return flash_attention_block_plain(q, k, v, q_off, k_off, causal,
+                                           scale, ring)
+    q, k, v = _check_block("flash_attention_block", q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _launch("hetu_flash_attention_block_fwd", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, sq, sk, d, n,
+            r, int(q_off), int(k_off), int(bool(causal)), float(scale),
+            int(q.dtype == torch.bfloat16), _stream(q))
+    flash_attention_block.launches += 1
+    return o, lse
+
+
+flash_attention_block.launches = 0
+
+
+def _block_bwd_launch(which, q, k, v, do, lse, dsum, q_off, k_off, causal,
+                      scale, ring):
+    """Launch the blockwise dQ (which = 0) or dK/dV (1) kernel; returns
+    dq or (dk, dv)."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    n, r = _ring(ring, sq, sk)
+    name = ("flash_attention_block_bwd_dq", "flash_attention_block_bwd_dkv")
+    q, k, v, do = _check_block(name[which], q, k, v, (do,))
+    if do.shape != q.shape:
+        raise TypeError(f"{name[which]}: dO must have q's shape")
+    lse, dsum = (t.float().contiguous() for t in (lse, dsum))
+    dq = torch.empty_like(q) if which == 0 else None
+    dk, dv = ((torch.empty_like(k), torch.empty_like(v)) if which == 1
+              else (None, None))
+    _launch("hetu_flash_attention_block_bwd", which, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dsum.data_ptr(), _ptr(dq), _ptr(dk), _ptr(dv), b, h, sq, sk, d,
+            n, r, int(q_off), int(k_off), int(bool(causal)), float(scale),
+            int(q.dtype == torch.bfloat16), _stream(q))
+    return dq if which == 0 else (dk, dv)
+
+
+def flash_attention_block_bwd_dq(q, k, v, do, lse, dsum, q_off, k_off, *,
+                                 causal=True, scale=None, ring=None):
+    """dQ [B,H,Sq,d] of one block pair (or one ring step) from the ring's
+    combined lse and D = ``dsum`` (both f32 [B,H,Sq])."""
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
+    if q.device.type == "cpu":
+        return flash_attention_block_bwd_plain(
+            q, k, v, do, lse, dsum, q_off, k_off, causal, scale, ring)[0]
+    dq = _block_bwd_launch(0, q, k, v, do, lse, dsum, q_off, k_off, causal,
+                           scale, ring)
+    flash_attention_block_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_block_bwd_dq.launches = 0
+
+
+def flash_attention_block_bwd_dkv(q, k, v, do, lse, dsum, q_off, k_off, *,
+                                  causal=True, scale=None, ring=None):
+    """(dK, dV) [B,H,Sk,d] of one block pair (or one ring step, each
+    block's at its own rows) from the combined lse and D = ``dsum``."""
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
+    if q.device.type == "cpu":
+        return flash_attention_block_bwd_plain(
+            q, k, v, do, lse, dsum, q_off, k_off, causal, scale, ring)[1:]
+    dkv = _block_bwd_launch(1, q, k, v, do, lse, dsum, q_off, k_off, causal,
+                            scale, ring)
+    flash_attention_block_bwd_dkv.launches += 1
+    return dkv
+
+
+flash_attention_block_bwd_dkv.launches = 0
+
+
+def flash_attention_block_bwd(q, k, v, o, lse, dout, q_off, k_off, *,
+                              causal=True, scale=None, ring=None, dsum=None):
+    """Gradients (dq, dk, dv) of one block pair given the COMBINED (o, lse)
+    of the whole ring forward, lse [B,H,Sq]: p = exp(s - lse) is each
+    block's share of the global softmax, so dq sums over the blocks and
+    (dk, dv) are exact per block.  D = rowsum(dO * O) is the same at every
+    ring step: a ring passes it as ``dsum`` once computed."""
+    if dsum is None:
+        dsum = _dsum(o, dout)
+    kw = dict(causal=causal, scale=scale, ring=ring)
+    if q.device.type == "cpu":
+        return flash_attention_block_bwd_plain(q, k, v, dout, lse, dsum,
+                                               q_off, k_off, **kw)
+    dq = flash_attention_block_bwd_dq(q, k, v, dout, lse, dsum, q_off, k_off,
+                                      **kw)
+    dk, dv = flash_attention_block_bwd_dkv(q, k, v, dout, lse, dsum, q_off,
+                                           k_off, **kw)
+    return dq, dk, dv

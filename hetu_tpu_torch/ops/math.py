@@ -1,4 +1,4 @@
-"""Elementwise math ops on the BERT and CTR paths (port of
+"""Elementwise math ops on the BERT, CTR and Llama paths (port of
 ``hetu_tpu/ops/math.py``).
 
 The rest of the JAX package's elementwise set arrives with the slices
@@ -31,6 +31,7 @@ def mulbyconst_op(node, const=1.0, name=None):
 tanh_op = simple_op(torch.tanh, "tanh")
 sigmoid_op = simple_op(torch.sigmoid, "sigmoid")
 relu_op = simple_op(torch.relu, "relu")
+silu_op = simple_op(F.silu, "silu")
 # the JAX package's gelu defaults to the tanh approximation
 gelu_op = simple_op(
     lambda a, approximate=True:

@@ -1,4 +1,5 @@
-"""Layer norm and dropout (port of ``hetu_tpu/ops/nn.py``, BERT subset)."""
+"""Layer norm, RMS norm and dropout (port of ``hetu_tpu/ops/nn.py``, the
+BERT and Llama subset)."""
 
 from __future__ import annotations
 
@@ -17,6 +18,15 @@ def _layer_norm(x, scale, bias, eps=1e-5):
 
 
 layer_normalization_op = simple_op(_layer_norm, "layer_normalization")
+
+
+def _rms_norm(x, scale, eps=1e-6):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+rms_norm_op = simple_op(_rms_norm, "rms_norm")
 
 
 class DropoutOp(Op):
