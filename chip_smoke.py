@@ -800,6 +800,36 @@ def expect_launches(**per_run):
     return {name: per_run.get(name, 0) for name in KERNEL_NAMES}
 
 
+def timed_window(step, fns, steps):
+    """``steps`` back-to-back steps timed by CUDA events, the launch
+    counters zeroed just before and read just after: (losses, ms over the
+    window, launches)."""
+    for fn in fns.values():
+        fn.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses = [step() for _ in range(steps)]
+    end.record()
+    torch.cuda.synchronize()
+    return (losses, start.elapsed_time(end),
+            {name: fn.launches for name, fn in fns.items()})
+
+
+def report_path(label, losses, ms, launches, expect, steps, B, unit, peak,
+                resident):
+    """Log a path's timed steps (``ms`` a step, ``peak`` and ``resident``
+    bytes) and check its losses finite and its launches as expected."""
+    log(f"{label}: {ms:.3f} ms/step, {1000.0 / ms:.2f} steps/s, "
+        f"{B * 1000.0 / ms:.1f} {unit}/s, peak memory {peak / 2**30:.2f} "
+        f"GiB (resident between steps {resident / 2**30:.2f} GiB), "
+        f"launches {launches} over {steps} steps")
+    log(f"{label}: losses {' '.join(f'{v:.6f}' for v in losses)}")
+    require(f"{label}: {len(losses)} losses finite",
+            all(math.isfinite(v) for v in losses))
+    require(f"{label}: launch counts {expect}", launches == expect)
+
+
 def run_path(label, step, fns, steps, B, expect, warmup=3, unit="samples"):
     """``warmup`` steps, then ``steps`` timed steps with the launch counters
     zeroed just before and read just after; returns (losses of every step,
@@ -808,27 +838,11 @@ def run_path(label, step, fns, steps, B, expect, warmup=3, unit="samples"):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
-    for fn in fns.values():
-        fn.launches = 0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(steps):
-        losses.append(step())
-    end.record()
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in fns.items()}
-    ms = start.elapsed_time(end) / steps
-    losses = [float(v) for v in losses]
-    log(f"{label}: {ms:.3f} ms/step, {1000.0 / ms:.2f} steps/s, "
-        f"{B * 1000.0 / ms:.1f} {unit}/s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (resident "
-        f"between steps {resident / 2**30:.2f} GiB), launches {launches} "
-        f"over {steps} steps")
-    log(f"{label}: losses {' '.join(f'{v:.6f}' for v in losses)}")
-    require(f"{label}: {len(losses)} losses finite",
-            all(math.isfinite(v) for v in losses))
-    require(f"{label}: launch counts {expect}", launches == expect)
+    timed, ms, launches = timed_window(step, fns, steps)
+    losses = [float(v) for v in losses + timed]
+    ms /= steps
+    report_path(label, losses, ms, launches, expect, steps, B, unit,
+                torch.cuda.max_memory_allocated(), resident)
     return losses, ms, launches
 
 
@@ -1543,25 +1557,33 @@ def llama_paths(ht, models, ht_parallel, fns, rng, steps, seed):
     """Phase 3e: bench_llama's Llama trained under a 4-position cp mesh on
     the card (the flash ring: 4 block launches of each kernel a layer)
     and without a mesh (the single-device flash kernels), from the same
-    params; then 2 layers at Mistral-7B's widths at S=8192 under cp=4.
-    Returns {label: (ms/step, launches)}."""
+    params, timed in turns; then 2 layers at Mistral-7B's widths at S=8192
+    under cp=4.  Returns {label: (ms/step, launches, first loss)}."""
     out = {}
     c = LLAMA
     tokens = c["B"] * c["S"]
     cuda = torch.device("cuda", 0)
     mesh = ht_parallel.make_mesh({"cp": c["cp"]}, devices=[cuda] * c["cp"])
     L = c["L"]
+    # the step is host-bound and its time moves from window to window, so
+    # the two paths are timed in turns (cp, mesh-less, mesh-less, cp, ...),
+    # both executors resident
+    turn = max(1, steps // 4)
+    timed = 4 * turn
+    paths = {}
     for label, m, expect in (
             ("llama cp=4 path", mesh, expect_launches(
-                flash_attention_block_fwd=L * c["cp"] * steps,
-                flash_attention_block_bwd_dq=L * c["cp"] * steps,
-                flash_attention_block_bwd_dkv=L * c["cp"] * steps,
-                softmax_ce_fwd=steps, softmax_ce_bwd=steps)),
+                flash_attention_block_fwd=L * c["cp"] * timed,
+                flash_attention_block_bwd_dq=L * c["cp"] * timed,
+                flash_attention_block_bwd_dkv=L * c["cp"] * timed,
+                softmax_ce_fwd=timed, softmax_ce_bwd=timed)),
             ("llama mesh-less path", None, expect_launches(
-                flash_attention_fwd=L * steps,
-                flash_attention_bwd_dq=L * steps,
-                flash_attention_bwd_dkv=L * steps,
-                softmax_ce_fwd=steps, softmax_ce_bwd=steps))):
+                flash_attention_fwd=L * timed,
+                flash_attention_bwd_dq=L * timed,
+                flash_attention_bwd_dkv=L * timed,
+                softmax_ce_fwd=timed, softmax_ce_bwd=timed))):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
         # the same seed gives both executors the same params and batch
         ex, step, init_s = llama_executor(
             ht, models, np.random.default_rng(seed + 9), c, seed, m)
@@ -1571,37 +1593,44 @@ def llama_paths(ht, models, ht_parallel, fns, rng, steps, seed):
             f"{m.shape if m is not None else None}, "
             f"{sum(p.numel() for p in ex.params.values())} params, init "
             f"{init_s:.1f} s")
-        losses, ms, launches = run_path(label, step, fns, steps, tokens,
-                                        expect, unit="tokens")
-        profile_steps(label, step, steps=1)
-        out[label] = (ms, launches, losses[0])
-        ex.close()
-        del ex, step
-        torch.cuda.empty_cache()
+        losses = [step() for _ in range(3)]
+        torch.cuda.synchronize()
+        paths[label] = dict(ex=ex, step=step, expect=expect, losses=losses,
+                            resident=torch.cuda.memory_allocated() - before,
+                            turns=[], peak=0,
+                            launches=dict.fromkeys(KERNEL_NAMES, 0))
+    order = list(paths) + list(paths)[::-1]
+    for label in order * 2:
+        p = paths[label]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        losses, ms, launches = timed_window(p["step"], fns, turn)
+        p["peak"] = max(p["peak"], torch.cuda.max_memory_allocated() - base)
+        p["losses"] += losses
+        p["turns"].append(ms / turn)
+        for name, n in launches.items():
+            p["launches"][name] += n
+    for label, p in paths.items():
+        ms = sum(p["turns"]) / len(p["turns"])
+        losses = [float(v) for v in p["losses"]]
+        log(f"{label}: in turns of {turn} steps, ms/step "
+            + " ".join(f"{t:.3f}" for t in p["turns"]))
+        report_path(label, losses, ms, p["launches"], p["expect"], timed,
+                    tokens, "tokens", p["resident"] + p["peak"],
+                    p["resident"])
+        profile_steps(label, p["step"], steps=1)
+        out[label] = (ms, p["launches"], losses[0])
+    for p in paths.values():
+        p["ex"].close()
+    del paths, p
+    torch.cuda.empty_cache()
     (ms_cp, _, first_cp), (ms_sd, _, first_sd) = out.values()
     log(f"llama paths: cp=4 {ms_cp:.3f} ms/step ({tokens * 1000 / ms_cp:.1f}"
         f" tokens/s), mesh-less {ms_sd:.3f} ms/step "
         f"({tokens * 1000 / ms_sd:.1f} tokens/s), ratio "
         f"{ms_cp / ms_sd:.3f}; first losses {first_cp:.6f} (cp) and "
         f"{first_sd:.6f}")
-    # the step is host-bound and its time moves from window to window: time
-    # the two paths again in turns (cp, mesh-less, mesh-less, cp)
-    exs = {label: llama_executor(ht, models, np.random.default_rng(seed),
-                                 c, seed, m)
-           for label, m in (("cp=4", mesh), ("mesh-less", None))}
-    for _, step, _ in exs.values():
-        for _ in range(3):
-            step()
-    turns = {label: [] for label in exs}
-    for label in ("cp=4", "mesh-less", "mesh-less", "cp=4"):
-        turns[label].append(time_ms(exs[label][1], steps, warmup=0))
-    log("llama paths in turns (cp, mesh-less, mesh-less, cp), ms/step: "
-        + "; ".join(f"{label} {' '.join(f'{t:.3f}' for t in ts)}"
-                    for label, ts in turns.items()))
-    for ex, _, _ in exs.values():
-        ex.close()
-    del exs
-    torch.cuda.empty_cache()
     check("llama first-step loss, cp=4 ring vs mesh-less (same params and "
           "batch)", torch.tensor(first_cp), torch.tensor(first_sd), 2e-2,
           "bf16 activations; the ring's attention rounds in other places "
@@ -1630,23 +1659,46 @@ def llama_paths(ht, models, ht_parallel, fns, rng, steps, seed):
     return out
 
 
+def block_bound(name, B, H, D, blocks, dtype):
+    """(ms, "bytes" or "operations") of one launch of the block kernel
+    ``name`` over ``blocks``, each rank's (query rows, keys, live (row,
+    key) pairs) in the launch.  Every rank's outputs are written once; its
+    inputs count only where its block has a live pair, since an empty
+    block's outputs are constants (o = 0 and lse = -1e30; dq = 0; dk = dv
+    = 0).  Operations: 4 d a live pair forward (QK^T, PV), 6 d for dQ
+    (QK^T, dO V^T, dS K), 8 d for dK/dV (QK^T, dO V^T, P^T dO, dS^T Q)."""
+    e = torch.finfo(dtype).bits // 8
+    n_bytes = ops = 0
+    for sq, sk, pairs in blocks:
+        live = pairs > 0
+        if name == "flash_attention_block_fwd":
+            n_bytes += live * (sq + 2 * sk) * D * e + sq * D * e + 4 * sq
+            ops += 4 * pairs * D
+        elif name == "flash_attention_block_bwd_dq":
+            n_bytes += live * ((2 * sq + 2 * sk) * D * e + 8 * sq) + sq * D * e
+            ops += 6 * pairs * D
+        else:
+            n_bytes += (live * ((2 * sq + 2 * sk) * D * e + 8 * sq)
+                        + 2 * sk * D * e)
+            ops += 8 * pairs * D
+    return bound(B * H * n_bytes, B * H * ops, dtype)
+
+
 def block_times(rng, fa):
     """The blockwise kernels at the witness's block shape, q [1,32,2048,128]
     bf16 against K/V of the same shape, for the full, diagonal and empty
-    blocks: each kernel, its plain version, its bound (the live (row, key)
-    pairs of this block) and one PyTorch library call (the yardstick;
+    blocks: each kernel, its plain version, its bound (``block_bound``)
+    and one PyTorch library call (the yardstick;
     nothing on the path calls it): scaled_dot_product_attention non-causal
     for the full block, causal for the diagonal, and its backward.  Then
-    the main path's ring-step launch, [8,12,1024,64] over 4 ranks, averaged
-    over the 4 steps.  Returns {case: {kernel: times}}."""
+    the main path's ring-step launch, [8,12,1024,64] over 4 ranks, and its
+    bound, averaged over the 4 steps.  Returns {case: {kernel: times}}."""
     B, H, S, D = 1, 32, 2048, 128
     bf = torch.bfloat16
     q, k, v, do = (torch.randn(B, H, S, D, device="cuda", dtype=bf)
                    for _ in range(4))
-    n = q.numel()
     pairs = {"full": S * S, "diagonal": S * (S + 1) // 2, "empty": 0}
     offsets = {"full": (S, 0), "diagonal": (0, 0), "empty": (0, S)}
-    small = B * H * S * 4
     out = {}
     for case, (q_off, k_off) in offsets.items():
         fwd = lambda: fa.flash_attention_block(  # noqa: E731
@@ -1681,13 +1733,9 @@ def block_times(rng, fa):
             lib["bwd"] = time_ms(lambda: torch.autograd.grad(
                 o_lib, (qg, kg, vg), do, retain_graph=True), 20)
             del qg, kg, vg, o_lib
-        p = pairs[case]
-        bounds = {"flash_attention_block_fwd": bound(
-                      4 * n * 2 + small, 4 * B * H * p * D, bf),
-                  "flash_attention_block_bwd_dq": bound(
-                      5 * n * 2 + 2 * small, 6 * B * H * p * D, bf),
-                  "flash_attention_block_bwd_dkv": bound(
-                      6 * n * 2 + 2 * small, 8 * B * H * p * D, bf)}
+        blocks = [(S, S, pairs[case])]
+        bounds = {name: block_bound(name, B, H, D, blocks, bf)
+                  for name in calls}
         out[case] = {}
         for name, (kern, plain) in calls.items():
             r = dict(ms=time_ms(kern, 20), plain_ms=time_ms(plain, 3),
@@ -1713,20 +1761,32 @@ def block_times(rng, fa):
                    for _ in range(4))
     o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     dsum = (do.float() * o.float()).sum(-1)
+    n, lc = c["cp"], c["S"] // c["cp"]
     ring = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
-    for r in range(c["cp"]):
-        kw = dict(ring=(c["cp"], r))
+    ring_bound = dict.fromkeys(ring, 0.0)
+    for r in range(n):
+        kw = dict(ring=(n, r))
+        # step r: rank g's rows see the K/V block of rank (g - r) mod n,
+        # its own diagonal at r = 0, a full block for g >= r > 0, else none
+        blocks = [(lc, lc, lc * (lc + 1) // 2 if r == 0
+                   else lc * lc if g >= r else 0) for g in range(n)]
+        for key, name in (("fwd", "flash_attention_block_fwd"),
+                          ("dq", "flash_attention_block_bwd_dq"),
+                          ("dkv", "flash_attention_block_bwd_dkv")):
+            ring_bound[key] += block_bound(name, shape[0], shape[1],
+                                           shape[3], blocks, bf)[0] / n
         ring["fwd"] += time_ms(lambda: fa.flash_attention_block(
-            q, k, v, 0, 0, **kw), 20) / c["cp"]
+            q, k, v, 0, 0, **kw), 20) / n
         ring["dq"] += time_ms(lambda: fa.flash_attention_block_bwd_dq(
-            q, k, v, do, lse, dsum, 0, 0, **kw), 20) / c["cp"]
+            q, k, v, do, lse, dsum, 0, 0, **kw), 20) / n
         ring["dkv"] += time_ms(lambda: fa.flash_attention_block_bwd_dkv(
-            q, k, v, do, lse, dsum, 0, 0, **kw), 20) / c["cp"]
-    log(f"kernel block ring-step launch {list(shape)} bf16 cp={c['cp']}, "
-        f"mean over the {c['cp']} steps: fwd {ring['fwd']:.4f} ms, dq "
-        f"{ring['dq']:.4f} ms, dkv {ring['dkv']:.4f} ms (a step's 4 ranks "
-        f"together; the causal work of all steps is one causal attention "
-        f"of the global sequence)")
+            q, k, v, do, lse, dsum, 0, 0, **kw), 20) / n
+    log(f"kernel block ring-step launch {list(shape)} bf16 cp={n}, mean "
+        f"over the {n} steps: "
+        + ", ".join(f"{key} {ring[key]:.4f} ms (bound {ring_bound[key]:.4f})"
+                    for key in ring)
+        + " (a step's 4 ranks together; the causal work of all steps is one "
+        "causal attention of the global sequence)")
     out["ring step"] = ring
     return out
 
@@ -1780,23 +1840,66 @@ def cross_device_llama(ht, models, ht_parallel, fns, rng, seed):
             f"max_abs_err={worst:.3e} tol=1e-5*{scale:.3e} + 1e-3*|g| (f32 "
             "on both sides; the ring, the GEMMs and the CE sum in another "
             f"order) {'bad: ' + str(bad) if bad else ''}", not bad)
-    errs = {}
-    for name, before_p in init.items():
-        change_cpu = ex_cpu.params[name] - before_p
-        change_gpu = ex_gpu.params[name].cpu() - before_p
-        errs[name] = ((change_gpu - change_cpu).norm()
-                      / change_cpu.norm()).item()
-    name = max(errs, key=errs.get)
-    err = max((ex_gpu.params[k].cpu() - v).abs().max().item()
-              for k, v in ex_cpu.params.items())
-    require(f"cross-device Llama params after one AdamW step: worst change "
-            f"error {errs[name]:.3e} ({name}) in the 2-norm, relative, tol "
-            f"1e-3, and max_abs_err {err:.3e} tol 2e-4 (2 lr): the first "
-            "step moves an entry by lr*g/(|g|+1e-8), which shifts by "
-            "percents of lr where |g| is within ~10x of eps, as in the k "
-            "projection's smallest gradients, for gradient differences "
-            "inside the tolerance above", errs[name] <= 1e-3 and err <= 2e-4)
+    adamw_change_checks("cross-device Llama", xs, init, ex_gpu, ex_cpu,
+                        out_gpu[2:], out_cpu[2:], lr=1e-4, eps=1e-7)
     ex_gpu.close()
+
+
+def adamw_change_checks(label, xs, init, ex_gpu, ex_cpu, g_gpu, g_cpu, lr,
+                        eps):
+    """Each param's change in a first AdamW step, card against CPU.  The
+    step moves an entry by lr (g / (|g| + eps) + wd p), whose slope in g,
+    lr eps / (|g| + eps)^2, reaches lr / eps at g = 0: a gradient
+    difference inside its tolerance moves the update of an entry with |g|
+    near eps by a large share of lr.  So entries whose |g| exceeds 100 eps
+    on both sides are held to slice E's 1e-4 relative in the 2-norm, a
+    param at a time; the others each to the mean-value bound of that slope
+    between the two gradients, lr |g_gpu - g_cpu| eps / (m + eps)^2 (m the
+    smaller |g|, 0 where the signs differ), plus an ulp of the param and
+    1e-6 lr of f32 rounding.  Logs the count and |g| of the small
+    entries and the error they add to the whole-param reading."""
+    worst, small_all, whole = {}, [], {}
+    bad_small = []
+    for x, gg, gc in zip(xs, g_gpu, g_cpu):
+        p0 = init[x.name]
+        gg = gg.cpu()
+        change_cpu = ex_cpu.params[x.name] - p0
+        change_gpu = ex_gpu.params[x.name].cpu() - p0
+        diff = (change_gpu - change_cpu).abs()
+        big = (gg.abs() > 100 * eps) & (gc.abs() > 100 * eps)
+        if big.any():
+            worst[x.name] = (diff[big].norm()
+                             / change_cpu[big].norm()).item()
+        whole[x.name] = (diff.norm() / change_cpu.norm()).item()
+        small = ~big
+        if small.any():
+            m = torch.where(gg * gc > 0, torch.minimum(gg.abs(), gc.abs()),
+                            torch.zeros_like(gc))
+            tol = (lr * (gg - gc).abs() * eps / (m + eps) ** 2
+                   + torch.finfo(torch.float32).eps * p0.abs() + 1e-6 * lr)
+            if not (diff[small] <= tol[small]).all():
+                bad_small.append(x.name)
+            small_all.append((x.name, int(small.sum()),
+                              gc[small].abs().max().item(),
+                              diff[small].max().item(),
+                              (diff[small] / tol[small]).max().item()))
+    name = max(worst, key=worst.get)
+    wname = max(whole, key=whole.get)
+    log(f"{label}: whole-param change error {whole[wname]:.3e} ({wname}) in "
+        f"the 2-norm, relative, {worst.get(wname, 0.0):.3e} over its entries "
+        f"with |g| > {100 * eps:g}; entries with |g| <= {100 * eps:g}: "
+        + ("; ".join(f"{n} {c} entries, max |g| {g:.3e}, max |diff| "
+                     f"{d:.3e} ({r:.3f} of its bound)"
+                     for n, c, g, d, r in small_all) or "none"))
+    require(f"{label} params after one AdamW step, entries with |g| > "
+            f"{100 * eps:g} on both sides: worst change error "
+            f"{worst[name]:.3e} ({name}) in the 2-norm, relative, tol 1e-4 "
+            "(f32 update from gradients within the tolerance above)",
+            worst[name] <= 1e-4)
+    require(f"{label} params after one AdamW step, entries with |g| <= "
+            f"{100 * eps:g}: each within lr |dg| eps / (m + eps)^2 + ulp(p) "
+            f"+ 1e-6 lr {'bad: ' + str(bad_small) if bad_small else ''}",
+            not bad_small)
 
 
 def main():
