@@ -10,12 +10,16 @@ Phases, each fatal on failure (exit 1, no result lines):
    source (flash-attention forward with dropout and its blockwise offset
    path; dQ and dK/dV backward, also blockwise; the packed-gradient write;
    the MoE row gather), all started together, then Triton's compiler for
-   the softmax-CE forward and backward.
+   the softmax-CE forward and backward.  The ptxas report names each
+   kernel's registers and spill stores (the wgmma kernels, and any that
+   spills).
 2. Kernels against their plain PyTorch versions on the card, on the same
-   inputs: the dropout keep bits bitwise; the flash forward (with and
-   without dropout), dQ, dK/dV and the CE forward and backward at the main
-   paths' shapes and at ragged, causal, fully-masked, wide-head and f32
-   ones; ``pack_write`` at the W&D shapes (uniform, Zipf-skewed, negative
+   inputs: the dropout keep bits bitwise, of the helper and inside the
+   wgmma forward and dQ kernels; two launches of each wgmma kernel give
+   the same bits; the flash forward (with and without dropout), dQ, dK/dV
+   and the CE forward and backward at the main paths' shapes (the wgmma
+   route for bf16 heads of 64 and 128) and at ragged, causal,
+   fully-masked, d = 96 (the mma.sync route), wide-head and f32 ones; ``pack_write`` at the W&D shapes (uniform, Zipf-skewed, negative
    and tail-line ids, Criteo's table, no ids), bitwise on lines with one
    contributor and against itself across two runs; the packed lookup's
    forward on the card against the CPU, with a NaN and an Inf row and
@@ -24,14 +28,17 @@ Phases, each fatal on failure (exit 1, no result lines):
    out-of-range indices, and one backward through ``RowGatherFn``; the
    blockwise (ring) forward, dQ and dK/dV at the full, diagonal, empty,
    partial and misaligned offsets, with a K/V block twice q's length, and
-   every step of a 4-rank ring at the cp path's shape, f32 and bf16, d 64
-   and 128 (empty rows lse = -1e30 and o = 0, unseen K/V rows dk = dv = 0,
-   bitwise); and ``ring_attention`` over a 4-position mesh against the
+   every step of a 4-rank ring at the cp path's shape and of one with
+   64-row groups (the mma.sync route), f32 and bf16, d 64 and 128 (empty
+   rows lse = -1e30 and o = 0, unseen K/V rows dk = dv = 0, bitwise); and ``ring_attention`` over a 4-position mesh against the
    single-device flash kernel on the global sequence, output and three
    gradients.  Each check prints its max |error| beside its stated
    tolerance.
-3. Main paths, each driven with the ten launch counters set to 0 just
-   before its timed steps and read just after:
+3. Main paths, each driven with the launch counters set to 0 just before
+   its timed steps and read just after: the ten kernels' and the flash
+   kernels' by route (``flash_attention.route_launches``), so that each
+   path shows its forward and dQ launches on the wgmma kernels (dK/dV on
+   mma.sync):
    a. BERT-base (vocab 30522, hidden 768, 12 layers, 12 heads, FFN 3072,
       seq 512, MLM bucket 0.25 -> 8192 rows) evaluated through
       ``Executor({"validate": [loss]}, compute_dtype=bfloat16)`` at batch
@@ -87,9 +94,11 @@ Phases, each fatal on failure (exit 1, no result lines):
    versions): loss, every gradient and every updated param are compared.
    The blockwise kernels are timed at the witness's block shape, q
    [1,32,2048,128] bf16, for the full, diagonal and empty blocks, beside
-   scaled_dot_product_attention (the yardstick) and its backward.
-4. Result: a {"kernels": [...]} JSON line, the nvidia-smi line, and last
-   {"ok": true, "device": {...}}.
+   scaled_dot_product_attention (the yardstick) and its backward; the
+   wgmma forward and dQ at the mesh-less Llama's causal [8,12,1024,64].
+4. Result: a {"kernels": [...]} JSON line (the ten kernels of the TPU
+   kernels' entry points and the two wgmma kernels), the nvidia-smi line,
+   and last {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -253,6 +262,32 @@ def randn(rng, shape, dtype):
 
 # -- phase 1 -----------------------------------------------------------------
 
+def ptxas_report(text):
+    """[(kernel, registers, spill-store bytes)] from nvcc's -Xptxas=-v
+    output, the kernels' names demangled where c++filt is found."""
+    out, name = [], None
+    for line in text.splitlines():
+        if "Function properties for " in line:
+            name = line.split("Function properties for ")[1].strip()
+            spill = 0
+        elif name and "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif name and "Used" in line and "registers" in line:
+            regs = int(line.split("Used")[1].split("registers")[0])
+            out.append([name, regs, spill])
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _, _ in out),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        for row, pretty in zip(out, names):
+            row[0] = pretty.replace("(anonymous namespace)::", "").split(
+                "(")[0]
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return [tuple(row) for row in out]
+
+
 def build_kernels(build, ce):
     """One nvcc per CUDA source, all at once; then the Triton kernels."""
     t0 = time.perf_counter()
@@ -262,9 +297,15 @@ def build_kernels(build, ce):
         f"{time.perf_counter() - t0:.1f} s")
     for source, lib in libs.items():
         with open(lib + ".log") as f:
-            for line in f:
-                if "Used" in line or "spill" in line.lower():
-                    log(f"  {source}: " + line.strip())
+            report = ptxas_report(f.read())
+        spills = [(n, r, b) for n, r, b in report if b]
+        log(f"  {source}: {len(report)} kernels, registers "
+            f"{min(r for _, r, _ in report)}-{max(r for _, r, _ in report)}"
+            f", {len(spills)} with spill stores")
+        for name, regs, spill in report:
+            if "wgmma" in name or spill:
+                log(f"  {source}: {name}: {regs} registers, {spill} bytes "
+                    "spill stores")
     t0 = time.perf_counter()
     probe = torch.zeros(8, 1024, device="cuda", dtype=torch.bfloat16)
     labels = torch.zeros(8, dtype=torch.int32, device="cuda")
@@ -312,6 +353,75 @@ def dropout_checks(rng, fa):
         del got, want
 
 
+# the largest error of the wgmma forward's o and dQ over phase 2's checks
+WGMMA_ERR = {"fwd": 0.0, "dq": 0.0}
+
+
+def wgmma_dropout_checks(rng, fa):
+    """Phase 2a': the keep bits inside the wgmma forward and dQ kernels,
+    bitwise.  With q = 0 every key of a row has p = 1/S; with V (and K for
+    dQ) holding the identity on keys [p d, (p + 1) d) and zeros elsewhere,
+    o[i, c] = keep(i, p d + c) / (keep S), and with dO = 1 and D = 0, dQ[i,
+    c] = scale keep(i, p d + c) / (keep S): nonzero exactly where the key is
+    kept.  Compared with the plain hash's bits over every (row, key)."""
+    B, H, S, keep = 2, 3, 256, 0.9
+    bf = torch.bfloat16
+    for D in (64, 128):
+        assert fa.flash_route("fwd", bf, D, S, S) == "wgmma"
+        seed = seed_tensor(rng)
+        want = fa.dropout_keep_mask_plain(seed, B * H, S, S, keep).reshape(
+            B, H, S, S)
+        q = torch.zeros(B, H, S, D, dtype=bf, device="cuda")
+        k = randn(rng, (B, H, S, D), bf)
+        do = torch.ones(B, H, S, D, dtype=bf, device="cuda")
+        lse = torch.full((B, H, S), math.log(S), device="cuda")
+        dsum = torch.zeros(B, H, S, device="cuda")
+        got_o = torch.zeros(B, H, S, S, dtype=torch.bool, device="cuda")
+        got_dq = torch.zeros_like(got_o)
+        for p in range(S // D):
+            eye = torch.zeros(B, H, S, D, dtype=bf, device="cuda")
+            eye[:, :, p * D:(p + 1) * D] = torch.eye(D, dtype=bf,
+                                                     device="cuda")
+            o, _ = fa.flash_attention_fwd(q, k, eye, dropout_keep=keep,
+                                          seed=seed)
+            dq = fa.flash_attention_bwd_dq(q, eye, eye, do, lse, dsum,
+                                           dropout_keep=keep, seed=seed)
+            got_o[..., p * D:(p + 1) * D] = o != 0
+            got_dq[..., p * D:(p + 1) * D] = dq != 0
+        torch.cuda.synchronize()
+        for label, got in (("forward", got_o), ("dQ", got_dq)):
+            diff = int((got != want).sum())
+            log(f"check wgmma {label} d={D} dropout keep bits [{B * H},{S},"
+                f"{S}]: {diff} of {got.numel()} differ")
+            require(f"wgmma {label} d={D} keep bits bitwise equal to the "
+                    "plain hash", diff == 0)
+
+
+def wgmma_repeat_checks(rng, fa):
+    """Phase 2a'': two launches of each wgmma kernel on the same inputs
+    give the same bits (no atomics, no order that varies)."""
+    bf = torch.bfloat16
+    for (B, H, S, D), causal, masked, keep in (
+            ((64, 12, 512, 64), False, True, 0.9),
+            ((8, 12, 1024, 64), True, False, 1.0),
+            ((1, 32, 2048, 128), False, False, 1.0)):
+        q, k, v, do = (randn(rng, (B, H, S, D), bf) for _ in range(4))
+        mask = bert_mask(rng, B, S, "cuda") if masked else None
+        seed = seed_tensor(rng) if keep < 1.0 else None
+        kw = dict(mask=mask, causal=causal, dropout_keep=keep, seed=seed)
+        runs = []
+        for _ in range(2):
+            o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            dsum = (do.float() * o.float()).sum(-1)
+            runs.append((o, lse, fa.flash_attention_bwd_dq(
+                q, k, v, do, lse, dsum, **kw)))
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(*runs)]
+        require(f"wgmma [{B},{H},{S},{D}] causal={causal} keep {keep}: two "
+                f"launches give the same bits (o, lse, dq: {same})",
+                all(same))
+
+
 def flash_fwd_checks(rng, fa):
     """Phase 2b: the CUDA flash forward against its plain version."""
     def case(label, B, H, S, D, dtype, mask=None, causal=False, keep=1.0):
@@ -323,9 +433,12 @@ def flash_fwd_checks(rng, fa):
         o_p, lse_p = fa.flash_attention_plain(q, k, v, mask=mask,
                                               causal=causal,
                                               dropout_keep=keep, seed=seed)
-        name = f"flash fwd {label} {str(dtype).split('.')[-1]}"
+        route = fa.flash_route("fwd", dtype, D, S, S)
+        name = f"flash fwd {label} {str(dtype).split('.')[-1]} ({route})"
         err = check(f"{name} o", o, o_p, *FWD_TOL[dtype])
         check(f"{name} lse", lse, lse_p, *LSE_TOL)
+        if route == "wgmma":
+            WGMMA_ERR["fwd"] = max(WGMMA_ERR["fwd"], err)
         return o, lse, err
 
     errs = {}
@@ -350,6 +463,14 @@ def flash_fwd_checks(rng, fa):
         case("[2,3,200,40] padded+mask keep 0.9", 2, 3, 200, 40, dtype,
              mask=bert_mask(rng, 2, 200, "cuda"), keep=0.9)
         case("[2,3,200,40] padded causal", 2, 3, 200, 40, dtype, causal=True)
+        # ragged S on the wgmma kernel, masked inside it
+        case("[2,3,200,64] padded+mask keep 0.9", 2, 3, 200, 64, dtype,
+             mask=bert_mask(rng, 2, 200, "cuda"), keep=0.9)
+        case("[2,3,1000,64] padded causal", 2, 3, 1000, 64, dtype,
+             causal=True)
+        # a head the wgmma kernel does not take: the mma.sync kernel
+        case("[2,4,512,96] bert-mask keep 0.9", 2, 4, 512, 96, dtype,
+             mask=bert_mask(rng, 2, 512, "cuda"), keep=0.9)
         case("[1,2,256,128] head-128", 1, 2, 256, 128, dtype,
              mask=bert_mask(rng, 1, 256, "cuda"))
         case("[1,2,256,256] wide-head", 1, 2, 256, 256, dtype,
@@ -377,9 +498,12 @@ def flash_bwd_checks(rng, fa):
         plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, mask=mask,
                                              causal=causal,
                                              dropout_keep=keep, seed=seed)
-        name = f"flash bwd {label} {str(dtype).split('.')[-1]}"
+        route = fa.flash_route("dq", dtype, D, S, S)
+        name = f"flash bwd {label} {str(dtype).split('.')[-1]} (dq {route})"
         errs = [check(f"{name} {g}", got, want, *BWD_TOL[dtype])
                 for g, got, want in zip(("dq", "dk", "dv"), grads, plain)]
+        if route == "wgmma":
+            WGMMA_ERR["dq"] = max(WGMMA_ERR["dq"], errs[0])
         return grads, errs
 
     errs = {}
@@ -407,6 +531,12 @@ def flash_bwd_checks(rng, fa):
         case("[2,3,200,40] padded+mask keep 0.9", 2, 3, 200, 40, dtype,
              mask=bert_mask(rng, 2, 200, "cuda"), keep=0.9)
         case("[2,3,200,40] padded causal", 2, 3, 200, 40, dtype, causal=True)
+        case("[2,3,200,64] padded+mask keep 0.9", 2, 3, 200, 64, dtype,
+             mask=bert_mask(rng, 2, 200, "cuda"), keep=0.9)
+        case("[2,3,1000,64] padded causal", 2, 3, 1000, 64, dtype,
+             causal=True)
+        case("[2,4,512,96] bert-mask keep 0.9", 2, 4, 512, 96, dtype,
+             mask=bert_mask(rng, 2, 512, "cuda"), keep=0.9)
         case("[1,2,256,128] head-128 keep 0.9", 1, 2, 256, 128, dtype,
              mask=bert_mask(rng, 1, 256, "cuda"), keep=0.9)
         case("[1,2,256,256] wide-head causal keep 0.9", 1, 2, 256, 256,
@@ -470,7 +600,8 @@ def block_checks(rng, fa):
                                                     ring=ring)
         plain = fa.flash_attention_block_bwd_plain(q, k, v, do, lse_p, dsum,
                                                    q_off, k_off, ring=ring)
-        name = f"block {label} {_name(dtype)}"
+        route = fa.flash_route("fwd", dtype, D, S, sk, (ring or (1, 0))[0])
+        name = f"block {label} {_name(dtype)} ({route})"
         errs = [check(f"{name} o", o, o_p, *FWD_TOL[dtype])]
         live = lse_p > -1e30
         check(f"{name} lse (live rows)", torch.where(live, lse, 0.0),
@@ -493,6 +624,9 @@ def block_checks(rng, fa):
                 "may round one ulp apart, and short causal rows make terms "
                 "of ~1") for g, got, want, sp in zip(
                     ("dq", "dk", "dv"), (dq, dk, dv), plain, spread)]
+        if route == "wgmma":
+            WGMMA_ERR["fwd"] = max(WGMMA_ERR["fwd"], errs[0])
+            WGMMA_ERR["dq"] = max(WGMMA_ERR["dq"], errs[1])
         # K/V rows that no query of the step sees (each row of q sits at
         # q_off + i, each key at k_off + j; a ring rank at its block's)
         n, r = ring or (1, 0)
@@ -533,6 +667,10 @@ def block_checks(rng, fa):
                          ring=(4, r)))
         case(f"ring [1,2,1024,128] cp=4 step {r}", (1, 2, 1024, 128), 1024,
              0, 0, torch.float32, ring=(4, r))
+        # groups of 64 rows, which a 128-row wgmma q tile would straddle:
+        # the mma.sync kernels
+        case(f"ring [2,4,256,64] cp=4 step {r}", (2, 4, 256, 64), 256, 0, 0,
+             torch.bfloat16, ring=(4, r))
     return {"fwd": max(e[0] for e in errs), "dq": max(e[1] for e in errs),
             "dkv": max(max(e[2:]) for e in errs)}
 
@@ -773,8 +911,37 @@ def bert_batch(rng, B, S, device):
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
+class RouteCount:
+    """The launches of one flash kernel by one route
+    (``flash_attention.route_launches``) behind the wrappers' ``launches``
+    attribute, so that a path zeroes and reads them with the others."""
+
+    def __init__(self, fa, kernel, route):
+        self.counts, self.key = fa.route_launches, (kernel, route)
+
+    @property
+    def launches(self):
+        return self.counts[self.key]
+
+    @launches.setter
+    def launches(self, n):
+        self.counts[self.key] = n
+
+
+# the routes a flash launch takes (flash_attention.flash_route): the wgmma
+# forward and dQ kernels of the main paths, the mma.sync and plain-FMA
+# kernels of the other shapes; dK/dV has no wgmma kernel
+ROUTES = {"flash_fwd_wgmma": ("fwd", "wgmma"),
+          "flash_bwd_dq_wgmma": ("dq", "wgmma"),
+          "flash_fwd_mma": ("fwd", "mma"), "flash_fwd_simt": ("fwd", "simt"),
+          "flash_bwd_dq_mma": ("dq", "mma"),
+          "flash_bwd_dq_simt": ("dq", "simt"),
+          "flash_bwd_dkv_mma": ("dkv", "mma"),
+          "flash_bwd_dkv_simt": ("dkv", "simt")}
+
+
 def counters(fa, ce, sd, md):
-    """The ten launch counters of the paths' kernels."""
+    """The launch counters of the paths' kernels and of the flash routes."""
     return {"flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
@@ -785,19 +952,37 @@ def counters(fa, ce, sd, md):
             "softmax_ce_fwd": ce.softmax_ce_fwd,
             "softmax_ce_bwd": ce.softmax_ce_bwd,
             "pack_write": sd.pack_write_kernel,
-            "row_gather": md.row_gather_kernel}
+            "row_gather": md.row_gather_kernel,
+            **{name: RouteCount(fa, *key) for name, key in ROUTES.items()}}
 
 
+# the kernels of the {"kernels": [...]} line: the ten of the TPU kernels'
+# entry points, then the two wgmma kernels of this port
 KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
                 "flash_attention_bwd_dkv", "flash_attention_block_fwd",
                 "flash_attention_block_bwd_dq",
                 "flash_attention_block_bwd_dkv", "softmax_ce_fwd",
-                "softmax_ce_bwd", "pack_write", "row_gather")
+                "softmax_ce_bwd", "pack_write", "row_gather",
+                "flash_fwd_wgmma", "flash_bwd_dq_wgmma")
+COUNTER_NAMES = KERNEL_NAMES + tuple(n for n in ROUTES
+                                     if n not in KERNEL_NAMES)
 
 
 def expect_launches(**per_run):
     """Expected launches of every counter: the named ones, 0 for the rest."""
-    return {name: per_run.get(name, 0) for name in KERNEL_NAMES}
+    return {name: per_run.get(name, 0) for name in COUNTER_NAMES}
+
+
+def flash_launches(n, block=False, bwd=True, route="wgmma", dkv="mma"):
+    """Counts of ``n`` launches of the flash forward (and, with ``bwd``, of
+    dQ and dK/dV) through the self-attention or the blockwise entry points,
+    by their routes: keywords for ``expect_launches``."""
+    pre = "flash_attention_block" if block else "flash_attention"
+    out = {f"{pre}_fwd": n, f"flash_fwd_{route}": n}
+    if bwd:
+        out.update({f"{pre}_bwd_dq": n, f"flash_bwd_dq_{route}": n,
+                    f"{pre}_bwd_dkv": n, f"flash_bwd_dkv_{dkv}": n})
+    return out
 
 
 def timed_window(step, fns, steps):
@@ -992,6 +1177,49 @@ def kernel_times(rng, fa, ce, B, S):
             f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), plain "
             f"{r['plain_ms']:.4f} ms, {library[name]} {r['library_ms']:.4f} "
             "ms")
+    return out
+
+
+def wgmma_times(fa):
+    """The wgmma forward and dQ kernels at bench_llama's mesh-less shape,
+    causal [8,12,1024,64] bf16: ms, bound (the causal (row, key) pairs'
+    products, or the bytes), plain ms and scaled_dot_product_attention
+    (causal) and its backward as the yardstick."""
+    c = LLAMA
+    B, H, S, D = c["B"], c["heads"], c["S"], c["H"] // c["heads"]
+    bf = torch.bfloat16
+    q, k, v, do = (torch.randn(B, H, S, D, device="cuda", dtype=bf)
+                   for _ in range(4))
+    n, pairs = q.numel(), B * H * S * (S + 1) // 2
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    dsum = (do.float() * o.float()).sum(-1)
+    t_lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 20)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    t_bwd_lib = time_ms(lambda: torch.autograd.grad(
+        o_lib, (qg, kg, vg), do, retain_graph=True), 20)
+    out = {
+        "flash_fwd_wgmma": dict(
+            ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+                       20),
+            plain_ms=time_ms(lambda: fa.flash_attention_plain(
+                q, k, v, causal=True), 3),
+            library_ms=t_lib,
+            bound=bound(4 * n * 2 + B * H * S * 4, 4 * pairs * D, bf)),
+        "flash_bwd_dq_wgmma": dict(
+            ms=time_ms(lambda: fa.flash_attention_bwd_dq(
+                q, k, v, do, lse, dsum, causal=True), 20),
+            plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal=True), 3),
+            library_ms=t_bwd_lib,
+            bound=bound(5 * n * 2 + 2 * B * H * S * 4, 6 * pairs * D, bf))}
+    for name, r in out.items():
+        log(f"kernel {name} [{B},{H},{S},{D}] bf16 causal: {r['ms']:.4f} "
+            f"ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), plain "
+            f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention"
+            f"{'' if 'fwd' in name else ' backward'} (causal) "
+            f"{r['library_ms']:.4f} ms")
     return out
 
 
@@ -1573,15 +1801,11 @@ def llama_paths(ht, models, ht_parallel, fns, rng, steps, seed):
     paths = {}
     for label, m, expect in (
             ("llama cp=4 path", mesh, expect_launches(
-                flash_attention_block_fwd=L * c["cp"] * timed,
-                flash_attention_block_bwd_dq=L * c["cp"] * timed,
-                flash_attention_block_bwd_dkv=L * c["cp"] * timed,
+                **flash_launches(L * c["cp"] * timed, block=True),
                 softmax_ce_fwd=timed, softmax_ce_bwd=timed)),
             ("llama mesh-less path", None, expect_launches(
-                flash_attention_fwd=L * timed,
-                flash_attention_bwd_dq=L * timed,
-                flash_attention_bwd_dkv=L * timed,
-                softmax_ce_fwd=timed, softmax_ce_bwd=timed))):
+                **flash_launches(L * timed), softmax_ce_fwd=timed,
+                softmax_ce_bwd=timed))):
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         # the same seed gives both executors the same params and batch
@@ -1598,7 +1822,7 @@ def llama_paths(ht, models, ht_parallel, fns, rng, steps, seed):
         paths[label] = dict(ex=ex, step=step, expect=expect, losses=losses,
                             resident=torch.cuda.memory_allocated() - before,
                             turns=[], peak=0,
-                            launches=dict.fromkeys(KERNEL_NAMES, 0))
+                            launches=dict.fromkeys(COUNTER_NAMES, 0))
     order = list(paths) + list(paths)[::-1]
     for label in order * 2:
         p = paths[label]
@@ -1648,9 +1872,7 @@ def llama_paths(ht, models, ht_parallel, fns, rng, steps, seed):
     n = w["L"] * w["cp"] * 3
     _, ms_w, _ = run_path(
         "mistral-width witness", step, fns, 3, w["B"] * w["S"],
-        expect_launches(flash_attention_block_fwd=n,
-                        flash_attention_block_bwd_dq=n,
-                        flash_attention_block_bwd_dkv=n, softmax_ce_fwd=3,
+        expect_launches(**flash_launches(n, block=True), softmax_ce_fwd=3,
                         softmax_ce_bwd=3), warmup=1, unit="tokens")
     out["mistral-width witness"] = (ms_w, None, None)
     ex.close()
@@ -1692,7 +1914,9 @@ def block_times(rng, fa):
     nothing on the path calls it): scaled_dot_product_attention non-causal
     for the full block, causal for the diagonal, and its backward.  Then
     the main path's ring-step launch, [8,12,1024,64] over 4 ranks, and its
-    bound, averaged over the 4 steps.  Returns {case: {kernel: times}}."""
+    bound, averaged over the 4 steps.  The empty blocks and the ring steps
+    are timed by their kernels' device time (``device_ms``), the rest by
+    CUDA events.  Returns {case: {kernel: times}}."""
     B, H, S, D = 1, 32, 2048, 128
     bf = torch.bfloat16
     q, k, v, do = (torch.randn(B, H, S, D, device="cuda", dtype=bf)
@@ -1738,7 +1962,10 @@ def block_times(rng, fa):
                   for name in calls}
         out[case] = {}
         for name, (kern, plain) in calls.items():
-            r = dict(ms=time_ms(kern, 20), plain_ms=time_ms(plain, 3),
+            # an empty block's launch takes the card less time than the
+            # host needs to make it: its kernels' device time
+            ms = device_ms(kern, 50) if case == "empty" else time_ms(kern, 20)
+            r = dict(ms=ms, plain_ms=time_ms(plain, 3),
                      bound=bounds[name],
                      library_ms=lib.get("fwd" if name.endswith("fwd")
                                         else "bwd"))
@@ -1775,12 +2002,14 @@ def block_times(rng, fa):
                           ("dkv", "flash_attention_block_bwd_dkv")):
             ring_bound[key] += block_bound(name, shape[0], shape[1],
                                            shape[3], blocks, bf)[0] / n
-        ring["fwd"] += time_ms(lambda: fa.flash_attention_block(
-            q, k, v, 0, 0, **kw), 20) / n
-        ring["dq"] += time_ms(lambda: fa.flash_attention_block_bwd_dq(
-            q, k, v, do, lse, dsum, 0, 0, **kw), 20) / n
-        ring["dkv"] += time_ms(lambda: fa.flash_attention_block_bwd_dkv(
-            q, k, v, do, lse, dsum, 0, 0, **kw), 20) / n
+        # ~0.03-0.09 ms launches, near the host's time per call: their
+        # kernels' device time
+        ring["fwd"] += device_ms(lambda: fa.flash_attention_block(
+            q, k, v, 0, 0, **kw), 50) / n
+        ring["dq"] += device_ms(lambda: fa.flash_attention_block_bwd_dq(
+            q, k, v, do, lse, dsum, 0, 0, **kw), 50) / n
+        ring["dkv"] += device_ms(lambda: fa.flash_attention_block_bwd_dkv(
+            q, k, v, do, lse, dsum, 0, 0, **kw), 50) / n
     log(f"kernel block ring-step launch {list(shape)} bf16 cp={n}, mean "
         f"over the {n} steps: "
         + ", ".join(f"{key} {ring[key]:.4f} ms (bound {ring_bound[key]:.4f})"
@@ -1821,11 +2050,10 @@ def cross_device_llama(ht, models, ht_parallel, fns, rng, seed):
     out_cpu = ex_cpu.run("train", feed_dict=feed)
     torch.cuda.synchronize()
     require(f"cross-device Llama: the card's step launched the block "
-            f"kernels 8/8/8 ({launches})",
+            f"kernels 8/8/8, f32 on the plain-FMA route ({launches})",
             launches == expect_launches(
-                flash_attention_block_fwd=8, flash_attention_block_bwd_dq=8,
-                flash_attention_block_bwd_dkv=8, softmax_ce_fwd=1,
-                softmax_ce_bwd=1))
+                **flash_launches(8, block=True, route="simt", dkv="simt"),
+                softmax_ce_fwd=1, softmax_ce_bwd=1))
     check("cross-device f32 Llama cp=4 train loss (card kernels vs CPU "
           "plain)", out_gpu[0].cpu(), out_cpu[0], 1e-5,
           "f32 on both sides; a loss of ~10.4 whose 32000-way logsumexp "
@@ -1937,6 +2165,8 @@ def main():
     rng = np.random.default_rng(args.seed)
     torch.manual_seed(args.seed)
     dropout_checks(rng, fa)
+    wgmma_dropout_checks(rng, fa)
+    wgmma_repeat_checks(rng, fa)
     fwd_err = flash_fwd_checks(rng, fa)
     bwd_err = flash_bwd_checks(rng, fa)
     block_err = block_checks(rng, fa)
@@ -1965,7 +2195,7 @@ def main():
     feed = bert_batch(rng, B, S, "cuda")
     eval_step = lambda: ex.run("validate", feed_dict=feed)[0]  # noqa: E731
     run_path("eval path", eval_step, fns, steps, B,
-             expect_launches(flash_attention_fwd=L * steps,
+             expect_launches(**flash_launches(L * steps, bwd=False),
                              softmax_ce_fwd=steps))
     if failures:
         log(f"FAILED: {failures}")
@@ -1995,10 +2225,8 @@ def main():
 
     _, train_ms, train_launches = run_path(
         "train path", train_step, fns, steps, B,
-        expect_launches(flash_attention_fwd=L * steps,
-                        flash_attention_bwd_dq=L * steps,
-                        flash_attention_bwd_dkv=L * steps,
-                        softmax_ce_fwd=steps, softmax_ce_bwd=steps))
+        expect_launches(**flash_launches(L * steps), softmax_ce_fwd=steps,
+                        softmax_ce_bwd=steps))
     if failures:
         log(f"FAILED: {failures}")
         return 1
@@ -2029,6 +2257,7 @@ def main():
     cross_device_moe(ht, layers, md, rng, args.seed)
     blocks = block_times(rng, fa)
     times.update(blocks["full"])
+    times.update(wgmma_times(fa))
     cross_device_llama(ht, models, htp, fns, rng, args.seed)
     if failures:
         log(f"FAILED: {failures}")
@@ -2062,17 +2291,26 @@ def main():
          "hetu_tpu/ops/pallas/sparse_densify.py:152", pw_err),
         ("row_gather", "cuda", src + "csrc/row_gather.cu",
          "hetu_tpu/ops/pallas/moe_dispatch.py:124", rg_err),
+        ("flash_fwd_wgmma", "cuda", src + "csrc/flash_attention_fwd.cu",
+         "hetu_tpu/ops/pallas/flash_attention.py:266", WGMMA_ERR["fwd"]),
+        ("flash_bwd_dq_wgmma", "cuda", src + "csrc/flash_attention_bwd.cu",
+         "hetu_tpu/ops/pallas/flash_attention.py:448", WGMMA_ERR["dq"]),
     ]
     # launches: each kernel's own training path (BERT, W&D at 337,000 rows
     # for pack_write, bench_moe for row_gather, the cp=4 Llama for the block
-    # kernels); row_gather's times are the sums over one bench_moe step's
-    # three launches; the block kernels' times are the full block's at the
-    # witness's block shape
+    # kernels, the mesh-less Llama for the wgmma kernels, which the BERT and
+    # cp=4 paths run too); row_gather's times are the sums over one
+    # bench_moe step's three launches; the block kernels' times are the full
+    # block's at the witness's block shape, the wgmma kernels' at the
+    # mesh-less Llama's causal shape
     cp_launches = llama["llama cp=4 path"][1]
+    meshless = llama["llama mesh-less path"][1]
     launches = dict(train_launches, pack_write=ctr[WDL_ROWS][1]["pack_write"],
                     row_gather=moe_launches["row_gather"],
                     **{name: cp_launches[name] for name in KERNEL_NAMES
-                       if name.startswith("flash_attention_block")})
+                       if name.startswith("flash_attention_block")},
+                    **{name: meshless[name] for name in
+                       ("flash_fwd_wgmma", "flash_bwd_dq_wgmma")})
     times["pack_write"] = pw_times[WDL_ROWS]
     kernels = [{"name": name, "route": route, "source": source,
                 "replaces": replaces, "launches": launches[name],

@@ -39,24 +39,37 @@
 // three products of 2*S^2*d per head and dK/dV four; their bf16
 // tensor-core time (989 TFLOP/s) is above the time of the ~5-6 [S, d]
 // tensors each reads and writes (3.35 TB/s), so both are bound by the
-// operations.  bf16 inputs with d <= 128 run every product on the tensor
-// cores with mma.sync.m16n8k16 (bf16 in, f32 accumulate), 4 warps of 16
-// rows each, 64x64 score tiles kept in registers, the Q/dO/K/V tiles in
-// shared memory.  f32 inputs (and bf16 heads wider than 128) take
-// plain-FMA kernels that stay in f32 (no TF32).  No TMA, wgmma or
-// pipelining yet.
+// operations.  The kernel of a launch is the route the Python wrapper
+// names from dtype and shape (`flash_route`) and passes in:
+// - wgmma (dQ only; bf16, d = 64 or 128): `flash_bwd_dq_wgmma`, built for
+//   Hopper as flash_attention_fwd.cu's `flash_fwd_wgmma` (flash_hopper.cuh):
+//   a persistent block per SM, a producer warp feeding each 128-row item's
+//   Q and dO once and its K/V tiles of 64 keys by TMA into 3 stages on
+//   mbarriers, two consumer warpgroups running S = Q K^T and dP = dO V^T
+//   on wgmma from shared memory and dQ += dS K with dS from registers and
+//   K through the descriptor's transpose bit.  64 keys a tile keep two
+//   64 x 64 score tiles and the 64 x d accumulator within the 168
+//   registers a thread of a 9-warp block gets.
+// - mma (bf16 with d % 8 == 0 and d <= 128, and every bf16 dK/dV of those
+//   heads): mma.sync.m16n8k16, 4 warps of 16 rows each, 64x64 score tiles
+//   in registers, the Q/dO/K/V tiles in shared memory.
+// - simt (f32, and bf16 heads the others do not take): plain-FMA kernels
+//   that stay in f32 (no TF32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
 #include "flash_common.cuh"
+#include "flash_hopper.cuh"
 
 namespace {
 
 using namespace hetu_flash;
+using namespace hetu_hopper;
 using bf16 = __nv_bfloat16;
 
 // -------------------------------------------------------------------------
@@ -351,6 +364,270 @@ __global__ void __launch_bounds__(kThreads)
           dk_acc[nd][2 * i] * scale, dk_acc[nd][2 * i + 1] * scale);
       *reinterpret_cast<uint32_t*>(dv + off) =
           pack_bf16(dv_acc[nd][2 * i], dv_acc[nd][2 * i + 1]);
+    }
+  }
+}
+
+// -------------------------------------------------------------------------
+// Hopper dQ kernel for bf16 heads of d = 64 and 128, persistent as
+// flash_fwd_wgmma: 2 consumer warpgroups of 64 query rows (a 128-row q
+// tile) and 1 producer warp.  For each work item the producer loads Q and
+// dO by TMA into one of two buffers, then the K/V tiles of 64 keys through
+// a ring of stages with their key masks.  Each consumer warpgroup runs S =
+// Q K^T and dP = dO V^T on wgmma from shared memory, forms dS = P *
+// (dropout(dP) - D) in registers as flash_bwd_dq_mma does, and accumulates
+// dQ += dS K on wgmma with dS from registers and K through the
+// descriptor's transpose bit.  Each dQ row is one warpgroup's: no atomics,
+// the same bits on every launch.
+
+template <int D>
+struct DqTiles {
+  static constexpr int BN = 64;  // keys of a kv tile
+  static constexpr int kStages = 3;
+  static constexpr int kQBytes = kHopperBM * D * 2;  // Q or dO of a buffer
+  static constexpr int kTileBytes = BN * D * 2;      // one K or V tile
+  // 2 buffers of Q and dO, 3 stages of K and V: 112 KB at d = 64, 224 KB
+  // at d = 128
+  static constexpr size_t kSmem = 1024 + 4 * kQBytes +
+                                  (size_t)kStages * 2 * kTileBytes +
+                                  kStages * BN * sizeof(float) +
+                                  (4 + 2 * kStages) * sizeof(uint64_t);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ dsum,
+                       const float* __restrict__ mask,
+                       const int32_t* __restrict__ seed,
+                       bf16* __restrict__ dq, int n_bh, int H, Blocks bl,
+                       int causal, float scale, float scale_log2,
+                       uint32_t thr, float inv_keep) {
+  using T = DqTiles<D>;
+  constexpr int BM = kHopperBM, BN = T::BN, NS = T::kStages;
+  extern __shared__ __align__(1024) unsigned char smem_hopper[];
+  unsigned char* sQ = align1024(smem_hopper);  // buffer b: Q, then dO
+  unsigned char* sKV = sQ + 4 * T::kQBytes;     // stage s: K, then V
+  float* sMask = reinterpret_cast<float*>(sKV + NS * 2 * T::kTileBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sMask + NS * BN);
+
+  const uint32_t bar0 = smem_u32(bars);
+  // barriers: buffer b full, buffer b free, stage s full, stage s free
+  auto q_full = [&](int b) { return bar0 + 8u * b; };
+  auto q_free = [&](int b) { return bar0 + 8u * (2 + b); };
+  auto full = [&](int s) { return bar0 + 8u * (4 + s); };
+  auto empty = [&](int s) { return bar0 + 8u * (4 + NS + s); };
+  auto q_buf = [&](int b) { return smem_u32(sQ) + b * 2 * T::kQBytes; };
+  auto k_tile = [&](int s) { return smem_u32(sKV) + s * 2 * T::kTileBytes; };
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(q_full(b), 1);
+      mbar_init(q_free(b), 8);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int n_qt = (bl.Sq + BM - 1) / BM, n_items = n_qt * n_bh;
+
+  if (warp == 8) {
+    // producer: an item's Q and dO into buffer qi % 2 once the item two
+    // before it is done with it, then its K/V tiles, the tj-th of the
+    // block into stage tj % NS once that stage is free
+    if (lane == 0) {
+      tma_prefetch(&tq);
+      tma_prefetch(&tdo);
+      tma_prefetch(&tk);
+      tma_prefetch(&tv);
+    }
+    int qi = 0, tj = 0;
+    for (int it = 0;; ++it) {
+      const int i = snake_item(it, blockIdx.x, gridDim.x);
+      if (i >= n_items) break;
+      const WorkItem w = work_item(i, n_qt, n_bh, causal, bl, BN);
+      if (w.n_tiles == 0) continue;
+      if (lane == 0) {
+        const int qb = qi & 1;
+        mbar_wait(q_free(qb), ((qi >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(q_full(qb), 2 * T::kQBytes);
+#pragma unroll
+        for (int h = 0; h < D / 64; ++h) {
+          tma_load_3d(q_buf(qb) + h * BM * 128, &tq, q_full(qb), h * 64,
+                      w.q0, w.bh);
+          tma_load_3d(q_buf(qb) + T::kQBytes + h * BM * 128, &tdo,
+                      q_full(qb), h * 64, w.q0, w.bh);
+        }
+      }
+      const int b = w.bh / H;
+      for (int j = 0; j < w.n_tiles; ++j, ++tj) {
+        const int s = tj % NS, k0 = w.kb + j * BN;
+        mbar_wait(empty(s), ((tj / NS) & 1) ^ 1);
+        for (int c = lane; c < BN; c += 32) {
+          const int key = k0 + c;
+          sMask[s * BN + c] =
+              key >= w.ke
+                  ? -INFINITY
+                  : (mask ? mask[(size_t)b * bl.Sk + key] * kLog2e : 0.f);
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full(s), 2 * T::kTileBytes);
+#pragma unroll
+          for (int h = 0; h < D / 64; ++h) {
+            tma_load_3d(k_tile(s) + h * BN * 128, &tk, full(s), h * 64, k0,
+                        w.bh);
+            tma_load_3d(k_tile(s) + T::kTileBytes + h * BN * 128, &tv,
+                        full(s), h * 64, k0, w.bh);
+          }
+        }
+      }
+      ++qi;
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [r_wg, r_wg + 64) of each item
+  const int wg = warp / 4;
+  const int g = lane >> 2, t = lane & 3;
+  int qi = 0, tj = 0;
+  for (int it = 0;; ++it) {
+    const int i = snake_item(it, blockIdx.x, gridDim.x);
+    if (i >= n_items) break;
+    const WorkItem w = work_item(i, n_qt, n_bh, causal, bl, BN);
+    const int bh = w.bh, q0 = w.q0;
+    if (w.n_tiles == 0) {  // no live key: dq = 0
+      for (int x = threadIdx.x; x < BM * D / 8; x += 256) {
+        const int row = q0 + x / (D / 8);
+        if (row < bl.Sq)
+          reinterpret_cast<uint4*>(dq + ((size_t)bh * bl.Sq + row) *
+                                            D)[x % (D / 8)] =
+              make_uint4(0u, 0u, 0u, 0u);
+      }
+      continue;
+    }
+    const int r_wg = q0 + wg * 64;
+    const int row_a = r_wg + (warp % 4) * 16 + g;  // and row_a + 8
+    const int my_tiles = kv_tiles(bl, causal, r_wg, 64, w.kb, BN);
+    const int dpos = bl.k_off - bl.q_off;
+    // per-row lse (base 2), D and dropout row key; rows past S get
+    // lse = +inf, so their P is 0
+    float lse2[2], dsm[2];
+    uint32_t rk[2] = {0u, 0u};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + 8 * r;
+      const bool in = row < bl.Sq;
+      lse2[r] = in ? lse[(size_t)bh * bl.Sq + row] * kLog2e : INFINITY;
+      dsm[r] = in ? dsum[(size_t)bh * bl.Sq + row] : 0.f;
+      if (seed) rk[r] = hetu_dropout::row_key((uint32_t)*seed, bh, row);
+    }
+    float acc[D / 2], s[BN / 2], dp[BN / 2];
+#pragma unroll
+    for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+#pragma unroll
+    for (int x = 0; x < BN / 2; ++x) s[x] = dp[x] = 0.f;
+    const int qb = qi & 1;
+    const uint32_t q_wg = q_buf(qb) + wg * 64 * 128;
+    const uint32_t do_wg = q_wg + T::kQBytes;
+
+    mbar_wait(q_full(qb), (qi >> 1) & 1);
+    for (int j = 0; j < w.n_tiles; ++j, ++tj) {
+      const int st = tj % NS, k0 = w.kb + j * BN;
+      mbar_wait(full(st), (tj / NS) & 1);
+      if (j < my_tiles) {
+        const uint32_t kt = k_tile(st), vt = kt + T::kTileBytes;
+        // S = Q K^T and dP = dO V^T: 64 rows x BN keys each
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t qo = (kk / 4) * BM * 128 + (kk % 4) * 32;
+          const uint32_t ko = (kk / 4) * BN * 128 + (kk % 4) * 32;
+          wgmma_ss<BN, 0>(s, desc_sw128(q_wg + qo, 16, 1024),
+                          desc_sw128(kt + ko, 16, 1024), kk > 0);
+          wgmma_ss<BN, 0>(dp, desc_sw128(do_wg + qo, 16, 1024),
+                          desc_sw128(vt + ko, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // P from the base-2 scores and lse: the key mask (with the keys
+        // past the block's end) only on tiles that have one, the causal
+        // exclusion only on tiles the diagonal crosses
+        const bool masked = mask != nullptr || k0 + BN > w.ke;
+        const bool diag = causal && k0 + BN - 1 + dpos > r_wg;
+        if (masked || diag) {
+          const float* tmask = sMask + st * BN;
+#pragma unroll
+          for (int x = 0; x < BN / 2; x += 2) {
+            const int r = (x >> 1) & 1, col = (x / 4) * 8 + 2 * t;
+            const float2 mk = *reinterpret_cast<const float2*>(tmask + col);
+            float x0 = s[x] * scale_log2 + mk.x;
+            float x1 = s[x + 1] * scale_log2 + mk.y;
+            if (diag) {
+              const int row = row_a + 8 * r;
+              if (k0 + col + dpos > row) x0 = -INFINITY;
+              if (k0 + col + 1 + dpos > row) x1 = -INFINITY;
+            }
+            s[x] = ex2(x0 - lse2[r]);
+            s[x + 1] = ex2(x1 - lse2[r]);
+          }
+        } else {
+#pragma unroll
+          for (int x = 0; x < BN / 2; ++x)
+            s[x] = ex2(fmaf(s[x], scale_log2, -lse2[(x >> 1) & 1]));
+        }
+        // dS = P * (dropout(dP) - D) as bf16 A fragments, one per 16 keys
+        uint32_t da[BN / 16][4];
+#pragma unroll
+        for (int x = 0; x < BN / 2; x += 2) {
+          const int r = (x >> 1) & 1;
+          float dp0 = dp[x], dp1 = dp[x + 1];
+          if (seed) {
+            const int col = k0 + (x / 4) * 8 + 2 * t;
+            dp0 = hetu_dropout::keep(rk[r], col, thr) ? dp0 * inv_keep : 0.f;
+            dp1 = hetu_dropout::keep(rk[r], col + 1, thr) ? dp1 * inv_keep
+                                                          : 0.f;
+          }
+          da[x / 8][(x / 2) % 4] =
+              pack_bf16(s[x] * (dp0 - dsm[r]), s[x + 1] * (dp1 - dsm[r]));
+        }
+
+        // dQ += dS K: BN / 16 k-steps of 16 keys, K MN-major (transposed)
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          wgmma_rs<D, 1>(acc, da[kk],
+                         desc_sw128(kt + kk * 2048, BN * 128, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+    // this warpgroup's products are done with the Q and dO buffer
+    __syncwarp();
+    if (lane == 0) mbar_arrive(q_free(qb));
+    ++qi;
+
+#pragma unroll
+    for (int x = 0; x < D / 2; x += 2) {
+      const int r = (x >> 1) & 1;
+      const int col = (x / 4) * 8 + 2 * t, row = row_a + 8 * r;
+      if (row < bl.Sq)
+        *reinterpret_cast<uint32_t*>(dq + ((size_t)bh * bl.Sq + row) * D +
+                                     col) =
+            pack_bf16(acc[x] * scale, acc[x + 1] * scale);
     }
   }
 }
@@ -715,10 +992,54 @@ cudaError_t launch_mma(int which, const Args& a) {
   return which == 0 ? launch_dq_mma<D>(a) : launch_dkv_mma<D>(a);
 }
 
-cudaError_t dispatch(int which, int is_bf16, const Args& a) {
+template <int D>
+cudaError_t launch_dq_wgmma(const Args& a) {
+  using T = DqTiles<D>;
+  const int n_bh = a.B * a.H;
+  // a q tile must lie in one ring group
+  if (a.bl.n > 1 && (a.bl.Sq / a.bl.n) % kHopperBM != 0)
+    return cudaErrorInvalidValue;
+  const long long n_items =
+      (long long)((a.bl.Sq + kHopperBM - 1) / kHopperBM) * n_bh;
+  if (n_items > INT_MAX) return cudaErrorInvalidValue;
+  CUtensorMap tq, tdo, tk, tv;
+  int blocks = 0;
+  cudaError_t err = encode_rows(&tq, a.q, n_bh, a.bl.Sq, D, kHopperBM);
+  if (err == cudaSuccess)
+    err = encode_rows(&tdo, a.dout, n_bh, a.bl.Sq, D, kHopperBM);
+  if (err == cudaSuccess)
+    err = encode_rows(&tk, a.k, n_bh, a.bl.Sk, D, T::BN);
+  if (err == cudaSuccess)
+    err = encode_rows(&tv, a.v, n_bh, a.bl.Sk, D, T::BN);
+  if (err == cudaSuccess) err = persistent_grid((int)n_items, &blocks);
+  if (err == cudaSuccess) err = prepare(flash_bwd_dq_wgmma<D>, T::kSmem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wgmma<D><<<blocks, kHopperThreads, T::kSmem, a.stream>>>(
+      tq, tdo, tk, tv, a.lse, a.dsum, a.mask, a.seed,
+      static_cast<bf16*>(a.dq), n_bh, a.H, a.bl, a.causal, a.scale,
+      a.scale_log2, a.thr, a.inv_keep);
+  return cudaGetLastError();
+}
+
+// The kernel that `route` names (the Python wrapper's `flash_route`; it is
+// never chosen here), for dQ (which = 0) or dK/dV (which = 1): 2 = wgmma
+// (dQ only: bf16, d = 64 or 128, Sq and Sk >= 128, a ring group a whole
+// number of 128-row q tiles), 1 = mma.sync (bf16, d % 8 == 0, d <= 128),
+// 0 = plain FMA (f32, or bf16 heads the others do not take, d <= 512).  A
+// route the shape does not fit is refused.
+cudaError_t dispatch(int which, int route, int is_bf16, const Args& a) {
   if (a.B <= 0 || a.H <= 0 || a.d <= 0 || !valid_blocks(a.bl, kTile))
     return cudaErrorInvalidValue;
-  if (is_bf16 && a.d % 8 == 0 && a.d <= 128) {
+  if (route == 2) {
+    if (which != 0 || !is_bf16 || a.bl.Sq < kHopperBM ||
+        a.bl.Sk < kHopperBM)
+      return cudaErrorInvalidValue;
+    if (a.d == 64) return launch_dq_wgmma<64>(a);
+    if (a.d == 128) return launch_dq_wgmma<128>(a);
+    return cudaErrorInvalidValue;
+  }
+  if (route == 1) {
+    if (!is_bf16 || a.d % 8 != 0 || a.d > 128) return cudaErrorInvalidValue;
     switch ((a.d + 15) / 16) {
       case 1: return launch_mma<16>(which, a);
       case 2: return launch_mma<32>(which, a);
@@ -730,8 +1051,10 @@ cudaError_t dispatch(int which, int is_bf16, const Args& a) {
       default: return launch_mma<128>(which, a);
     }
   }
-  if (is_bf16) return dispatch_simt<bf16>(which, a);
-  return dispatch_simt<float>(which, a);
+  if (route == 0)
+    return is_bf16 ? dispatch_simt<bf16>(which, a)
+                   : dispatch_simt<float>(which, a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -739,16 +1062,18 @@ cudaError_t dispatch(int which, int is_bf16, const Args& a) {
 // q, k, v, dout, dq, dk, dv: [B*H, S, d] contiguous, bf16 (is_bf16) or f32;
 // lse, dsum: [B*H, S] f32 (the forward's lse, rowsum(dO * O)); mask: [B, S]
 // f32 or null; seed: one int32 on the device, or null for no dropout (then
-// thr and inv_keep are unused).  Each returns a cudaError_t (0 = launched).
+// thr and inv_keep are unused); route: the kernel (dispatch).  Each returns
+// a cudaError_t (0 = launched).
 extern "C" int hetu_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* dsum, const float* mask,
     const int32_t* seed, void* dq, int B, int H, int S, int d, int causal,
-    float scale, uint32_t thr, float inv_keep, int is_bf16, void* stream) {
+    float scale, uint32_t thr, float inv_keep, int is_bf16, int route,
+    void* stream) {
   const Args a{q, k, v, dout, lse, dsum, mask, seed, dq, nullptr, nullptr,
                B, H, self_attention(S), d, causal, scale, scale * kLog2e, thr,
                inv_keep, static_cast<cudaStream_t>(stream)};
-  return (int)dispatch(0, is_bf16, a);
+  return (int)dispatch(0, route, is_bf16, a);
 }
 
 extern "C" int hetu_flash_attention_bwd_dkv(
@@ -756,11 +1081,11 @@ extern "C" int hetu_flash_attention_bwd_dkv(
     const float* lse, const float* dsum, const float* mask,
     const int32_t* seed, void* dk, void* dv, int B, int H, int S, int d,
     int causal, float scale, uint32_t thr, float inv_keep, int is_bf16,
-    void* stream) {
+    int route, void* stream) {
   const Args a{q, k, v, dout, lse, dsum, mask, seed, nullptr, dk, dv,
                B, H, self_attention(S), d, causal, scale, scale * kLog2e, thr,
                inv_keep, static_cast<cudaStream_t>(stream)};
-  return (int)dispatch(1, is_bf16, a);
+  return (int)dispatch(1, route, is_bf16, a);
 }
 
 // The blockwise backward (`flash_attention_block_bwd`, flash_attention.py
@@ -774,11 +1099,11 @@ extern "C" int hetu_flash_attention_block_bwd(
     int which, const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* dsum, void* dq, void* dk, void* dv, int B,
     int H, int Sq, int Sk, int d, int n, int r, int q_off, int k_off,
-    int causal, float scale, int is_bf16, void* stream) {
+    int causal, float scale, int is_bf16, int route, void* stream) {
   if (which != 0 && which != 1) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, dout, lse, dsum, nullptr, nullptr, dq, dk, dv, B, H,
                Blocks{Sq, Sk, n, r, q_off, k_off, kBlockEmptyLse}, d, causal,
                scale, scale * kLog2e, 0u, 1.f,
                static_cast<cudaStream_t>(stream)};
-  return (int)dispatch(which, is_bf16, a);
+  return (int)dispatch(which, route, is_bf16, a);
 }

@@ -7,10 +7,16 @@ Replaces the Pallas TPU kernels of ``hetu_tpu/ops/pallas/flash_attention.py``:
 and ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` reached through
 ``_bwd_impl`` (lines 448 and 463).  The CUDA sources are
 ``hetu_tpu_torch/csrc/flash_attention_fwd.cu`` and
-``flash_attention_bwd.cu``; their headers say what bounds each kernel on
-the H100 and what the design does about it.  The TPU kernels' 512-row
-blocks were sized for v5e VMEM; the Hopper kernels use 64x64 tiles that fit
-shared memory and mask ragged S and d inside the kernel instead of padding.
+``flash_attention_bwd.cu`` (with ``flash_hopper.cuh``); their headers
+say what bounds each kernel on the H100 and what the design does about
+it.  The TPU kernels' 512-row blocks were sized for v5e VMEM; the Hopper
+kernels use tiles that fit shared memory and mask ragged S and d inside
+the kernel instead of padding.  Each launch takes the kernel that
+``flash_route`` names from its dtype and shape, never another on failure:
+the wgmma forward and dQ kernels (128-row q tiles, TMA-fed K/V stages)
+for bf16 heads of 64 and 128, the mma.sync kernels for the other bf16
+heads up to 128 and for dK/dV, the plain-FMA kernels for f32 and the rest.
+``route_launches`` counts the launches of each (kernel, route).
 
 Dropout: the TPU kernels reseed the TPU PRNG per (seed, tile).  Here an
 element's keep bit is a stateless hash of (seed, bh, row, col) in global
@@ -40,6 +46,7 @@ ring bring to rank g.  The offsets are Python ints, computed on the host.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -62,19 +69,20 @@ _SIGNATURES = {
     # name: (source, argtypes)
     "hetu_flash_attention_fwd": (
         _FWD_SOURCE, [_P] * 7 + [_I] * 5 + [ctypes.c_float, ctypes.c_uint32,
-                                            ctypes.c_float, _I, _P]),
+                                            ctypes.c_float, _I, _I, _P]),
     "hetu_dropout_keep_mask": (
         _FWD_SOURCE, [_P] * 2 + [_I] * 3 + [ctypes.c_uint32, _P]),
     "hetu_flash_attention_bwd_dq": (
         _BWD_SOURCE, [_P] * 9 + [_I] * 5 + [ctypes.c_float, ctypes.c_uint32,
-                                            ctypes.c_float, _I, _P]),
+                                            ctypes.c_float, _I, _I, _P]),
     "hetu_flash_attention_bwd_dkv": (
         _BWD_SOURCE, [_P] * 10 + [_I] * 5 + [ctypes.c_float, ctypes.c_uint32,
-                                             ctypes.c_float, _I, _P]),
+                                             ctypes.c_float, _I, _I, _P]),
     "hetu_flash_attention_block_fwd": (
-        _FWD_SOURCE, [_P] * 5 + [_I] * 10 + [ctypes.c_float, _I, _P]),
+        _FWD_SOURCE, [_P] * 5 + [_I] * 10 + [ctypes.c_float, _I, _I, _P]),
     "hetu_flash_attention_block_bwd": (
-        _BWD_SOURCE, [_I] + [_P] * 9 + [_I] * 10 + [ctypes.c_float, _I, _P]),
+        _BWD_SOURCE, [_I] + [_P] * 9 + [_I] * 10 + [ctypes.c_float, _I, _I,
+                                                     _P]),
 }
 
 
@@ -108,6 +116,39 @@ def _supported(q, k, v, mask):
     if mask is not None and tuple(mask.shape) != (b, 1, 1, s):
         return False
     return True
+
+
+# -- routes ------------------------------------------------------------------
+
+_ROUTE_CODE = {"simt": 0, "mma": 1, "wgmma": 2}  # the C entry points' route
+WGMMA_ROWS = 128  # q rows of a wgmma block, the least Sq and Sk it takes
+
+# launches of each kernel ("fwd", "dq", "dkv": the self-attention and the
+# blockwise entry points together) by route, beside the entry points' own
+# counts
+route_launches = collections.Counter()
+
+
+def flash_route(kernel, dtype, d, sq, sk, n=1):
+    """The CUDA kernel that a launch of ``kernel`` ("fwd", "dq" or "dkv")
+    takes, a pure function of dtype and shape:
+
+    - "wgmma" (Hopper: TMA-fed K/V stages, wgmma products) for the forward
+      and dQ on bf16 heads of d = 64 or 128 with Sq, Sk >= 128 and, in a
+      ring of n > 1 groups, groups of whole 128-row q tiles;
+    - "mma" (mma.sync m16n8k16) for the other bf16 heads with d % 8 == 0
+      and d <= 128, and for dK/dV;
+    - "simt" (plain FMA, f32 accumulation) for f32 and the remaining bf16
+      heads (d <= 512).
+    """
+    if dtype == torch.bfloat16:
+        if (kernel in ("fwd", "dq") and d in (64, 128)
+                and min(sq, sk) >= WGMMA_ROWS
+                and (n == 1 or (sq // n) % WGMMA_ROWS == 0)):
+            return "wgmma"
+        if d % 8 == 0 and d <= 128:
+            return "mma"
+    return "simt"
 
 
 # -- dropout keep bits -------------------------------------------------------
@@ -332,11 +373,14 @@ def flash_attention_fwd(q, k, v, mask=None, causal=False, scale=None,
         "flash_attention_fwd", q, k, v, mask, dropout_keep, seed)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    route = flash_route("fwd", q.dtype, d, s, s)
     _launch("hetu_flash_attention_fwd", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), _ptr(mask), _ptr(seed), o.data_ptr(),
             lse.data_ptr(), b, h, s, d, int(bool(causal)), float(scale), thr,
-            inv_keep, int(q.dtype == torch.bfloat16), _stream(q))
+            inv_keep, int(q.dtype == torch.bfloat16), _ROUTE_CODE[route],
+            _stream(q))
     flash_attention_fwd.launches += 1
+    route_launches["fwd", route] += 1
     return o, lse
 
 
@@ -357,12 +401,14 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dsum, mask=None, causal=False,
     b, h, s, d = q.shape
     lse, dsum = (t.float().contiguous() for t in (lse, dsum))
     dq = torch.empty_like(q)
+    route = flash_route("dq", q.dtype, d, s, s)
     _launch("hetu_flash_attention_bwd_dq", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
             _ptr(mask), _ptr(seed), dq.data_ptr(), b, h, s, d,
             int(bool(causal)), float(scale), thr, inv_keep,
-            int(q.dtype == torch.bfloat16), _stream(q))
+            int(q.dtype == torch.bfloat16), _ROUTE_CODE[route], _stream(q))
     flash_attention_bwd_dq.launches += 1
+    route_launches["dq", route] += 1
     return dq
 
 
@@ -384,12 +430,14 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, dsum, mask=None, causal=False,
     lse, dsum = (t.float().contiguous() for t in (lse, dsum))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    route = flash_route("dkv", q.dtype, d, s, s)
     _launch("hetu_flash_attention_bwd_dkv", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
             _ptr(mask), _ptr(seed), dk.data_ptr(), dv.data_ptr(), b, h, s, d,
             int(bool(causal)), float(scale), thr, inv_keep,
-            int(q.dtype == torch.bfloat16), _stream(q))
+            int(q.dtype == torch.bfloat16), _ROUTE_CODE[route], _stream(q))
     flash_attention_bwd_dkv.launches += 1
+    route_launches["dkv", route] += 1
     return dk, dv
 
 
@@ -557,11 +605,13 @@ def flash_attention_block(q, k, v, q_off, k_off, *, causal=True, scale=None,
     q, k, v = _check_block("flash_attention_block", q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    route = flash_route("fwd", q.dtype, d, sq, sk, n)
     _launch("hetu_flash_attention_block_fwd", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, sq, sk, d, n,
             r, int(q_off), int(k_off), int(bool(causal)), float(scale),
-            int(q.dtype == torch.bfloat16), _stream(q))
+            int(q.dtype == torch.bfloat16), _ROUTE_CODE[route], _stream(q))
     flash_attention_block.launches += 1
+    route_launches["fwd", route] += 1
     return o, lse
 
 
@@ -583,11 +633,14 @@ def _block_bwd_launch(which, q, k, v, do, lse, dsum, q_off, k_off, causal,
     dq = torch.empty_like(q) if which == 0 else None
     dk, dv = ((torch.empty_like(k), torch.empty_like(v)) if which == 1
               else (None, None))
+    kernel = ("dq", "dkv")[which]
+    route = flash_route(kernel, q.dtype, d, sq, sk, n)
     _launch("hetu_flash_attention_block_bwd", which, q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             dsum.data_ptr(), _ptr(dq), _ptr(dk), _ptr(dv), b, h, sq, sk, d,
             n, r, int(q_off), int(k_off), int(bool(causal)), float(scale),
-            int(q.dtype == torch.bfloat16), _stream(q))
+            int(q.dtype == torch.bfloat16), _ROUTE_CODE[route], _stream(q))
+    route_launches[kernel, route] += 1
     return dq if which == 0 else (dk, dv)
 
 
