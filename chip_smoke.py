@@ -11,12 +11,15 @@ Phases, each fatal on failure (exit 1, no result lines):
    path; dQ and dK/dV backward, also blockwise; the packed-gradient write;
    the MoE row gather), all started together, then Triton's compiler for
    the softmax-CE forward and backward.  The ptxas report names each
-   kernel's registers and spill stores (the wgmma kernels, and any that
-   spills).
+   kernel's registers and spill stores (the three wgmma kernels, and any
+   that spills).
 2. Kernels against their plain PyTorch versions on the card, on the same
    inputs: the dropout keep bits bitwise, of the helper and inside the
-   wgmma forward and dQ kernels; two launches of each wgmma kernel give
-   the same bits; the flash forward (with and without dropout), dQ, dK/dV
+   wgmma forward, dQ and dK/dV kernels; two launches of each wgmma kernel
+   give the same bits (at BERT's, Llama's, ragged and the d = 128 block
+   shapes, and the empty, diagonal and full blocks' dK/dV, the full one
+   also against its plain version); the flash forward (with and without
+   dropout), dQ, dK/dV
    and the CE forward and backward at the main paths' shapes (the wgmma
    route for bf16 heads of 64 and 128) and at ragged, causal,
    fully-masked, d = 96 (the mma.sync route), wide-head and f32 ones; ``pack_write`` at the W&D shapes (uniform, Zipf-skewed, negative
@@ -37,8 +40,7 @@ Phases, each fatal on failure (exit 1, no result lines):
 3. Main paths, each driven with the launch counters set to 0 just before
    its timed steps and read just after: the ten kernels' and the flash
    kernels' by route (``flash_attention.route_launches``), so that each
-   path shows its forward and dQ launches on the wgmma kernels (dK/dV on
-   mma.sync):
+   path shows its forward, dQ and dK/dV launches on the wgmma kernels:
    a. BERT-base (vocab 30522, hidden 768, 12 layers, 12 heads, FFN 3072,
       seq 512, MLM bucket 0.25 -> 8192 rows) evaluated through
       ``Executor({"validate": [loss]}, compute_dtype=bfloat16)`` at batch
@@ -95,10 +97,11 @@ Phases, each fatal on failure (exit 1, no result lines):
    The blockwise kernels are timed at the witness's block shape, q
    [1,32,2048,128] bf16, for the full, diagonal and empty blocks, beside
    scaled_dot_product_attention (the yardstick) and its backward; the
-   wgmma forward and dQ at the mesh-less Llama's causal [8,12,1024,64].
+   wgmma forward, dQ and dK/dV at the mesh-less Llama's causal
+   [8,12,1024,64].
 4. Result: a {"kernels": [...]} JSON line (the ten kernels of the TPU
-   kernels' entry points and the two wgmma kernels), the nvidia-smi line,
-   and last {"ok": true, "device": {...}}.
+   kernels' entry points and the three wgmma kernels), the nvidia-smi
+   line, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -353,21 +356,26 @@ def dropout_checks(rng, fa):
         del got, want
 
 
-# the largest error of the wgmma forward's o and dQ over phase 2's checks
-WGMMA_ERR = {"fwd": 0.0, "dq": 0.0}
+# the largest error of the wgmma forward's o, of dQ and of dK, dV over
+# phase 2's checks
+WGMMA_ERR = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
 
 
 def wgmma_dropout_checks(rng, fa):
-    """Phase 2a': the keep bits inside the wgmma forward and dQ kernels,
-    bitwise.  With q = 0 every key of a row has p = 1/S; with V (and K for
-    dQ) holding the identity on keys [p d, (p + 1) d) and zeros elsewhere,
-    o[i, c] = keep(i, p d + c) / (keep S), and with dO = 1 and D = 0, dQ[i,
-    c] = scale keep(i, p d + c) / (keep S): nonzero exactly where the key is
-    kept.  Compared with the plain hash's bits over every (row, key)."""
+    """Phase 2a': the keep bits inside the wgmma forward, dQ and dK/dV
+    kernels, bitwise.  With q = 0 every key of a row has p = 1/S; with V
+    (and K for dQ) holding the identity on keys [p d, (p + 1) d) and zeros
+    elsewhere, o[i, c] = keep(i, p d + c) / (keep S), and with dO = 1 and D
+    = 0, dQ[i, c] = scale keep(i, p d + c) / (keep S): nonzero exactly
+    where the key is kept.  For dK/dV, dO holds the identity on rows [p d,
+    (p + 1) d) instead, so dV[key, c] = keep(p d + c, key) / (keep S):
+    nonzero exactly where row p d + c keeps the key.  Compared with the
+    plain hash's bits over every (row, key)."""
     B, H, S, keep = 2, 3, 256, 0.9
     bf = torch.bfloat16
     for D in (64, 128):
-        assert fa.flash_route("fwd", bf, D, S, S) == "wgmma"
+        assert all(fa.flash_route(kern, bf, D, S, S) == "wgmma"
+                   for kern in ("fwd", "dq", "dkv"))
         seed = seed_tensor(rng)
         want = fa.dropout_keep_mask_plain(seed, B * H, S, S, keep).reshape(
             B, H, S, S)
@@ -378,6 +386,7 @@ def wgmma_dropout_checks(rng, fa):
         dsum = torch.zeros(B, H, S, device="cuda")
         got_o = torch.zeros(B, H, S, S, dtype=torch.bool, device="cuda")
         got_dq = torch.zeros_like(got_o)
+        got_dv = torch.zeros_like(got_o)
         for p in range(S // D):
             eye = torch.zeros(B, H, S, D, dtype=bf, device="cuda")
             eye[:, :, p * D:(p + 1) * D] = torch.eye(D, dtype=bf,
@@ -386,10 +395,14 @@ def wgmma_dropout_checks(rng, fa):
                                           seed=seed)
             dq = fa.flash_attention_bwd_dq(q, eye, eye, do, lse, dsum,
                                            dropout_keep=keep, seed=seed)
+            _, dv = fa.flash_attention_bwd_dkv(q, k, k, eye, lse, dsum,
+                                               dropout_keep=keep, seed=seed)
             got_o[..., p * D:(p + 1) * D] = o != 0
             got_dq[..., p * D:(p + 1) * D] = dq != 0
+            got_dv[..., p * D:(p + 1) * D, :] = (dv != 0).transpose(-1, -2)
         torch.cuda.synchronize()
-        for label, got in (("forward", got_o), ("dQ", got_dq)):
+        for label, got in (("forward", got_o), ("dQ", got_dq),
+                           ("dK/dV", got_dv)):
             diff = int((got != want).sum())
             log(f"check wgmma {label} d={D} dropout keep bits [{B * H},{S},"
                 f"{S}]: {diff} of {got.numel()} differ")
@@ -399,12 +412,17 @@ def wgmma_dropout_checks(rng, fa):
 
 def wgmma_repeat_checks(rng, fa):
     """Phase 2a'': two launches of each wgmma kernel on the same inputs
-    give the same bits (no atomics, no order that varies)."""
+    give the same bits (no atomics, no order that varies): the forward, dQ
+    and dK/dV at BERT's, Llama's, the d = 128 block's and ragged shapes,
+    then the blockwise dK/dV at the witness's empty, diagonal and full
+    blocks, the full one also against its plain version."""
     bf = torch.bfloat16
     for (B, H, S, D), causal, masked, keep in (
             ((64, 12, 512, 64), False, True, 0.9),
             ((8, 12, 1024, 64), True, False, 1.0),
-            ((1, 32, 2048, 128), False, False, 1.0)):
+            ((1, 32, 2048, 128), False, False, 1.0),
+            ((2, 3, 200, 64), False, True, 0.9),
+            ((2, 3, 1000, 128), True, False, 1.0)):
         q, k, v, do = (randn(rng, (B, H, S, D), bf) for _ in range(4))
         mask = bert_mask(rng, B, S, "cuda") if masked else None
         seed = seed_tensor(rng) if keep < 1.0 else None
@@ -414,12 +432,43 @@ def wgmma_repeat_checks(rng, fa):
             o, lse = fa.flash_attention_fwd(q, k, v, **kw)
             dsum = (do.float() * o.float()).sum(-1)
             runs.append((o, lse, fa.flash_attention_bwd_dq(
-                q, k, v, do, lse, dsum, **kw)))
+                q, k, v, do, lse, dsum, **kw), *fa.flash_attention_bwd_dkv(
+                    q, k, v, do, lse, dsum, **kw)))
         torch.cuda.synchronize()
         same = [torch.equal(a, b) for a, b in zip(*runs)]
         require(f"wgmma [{B},{H},{S},{D}] causal={causal} keep {keep}: two "
-                f"launches give the same bits (o, lse, dq: {same})",
+                f"launches give the same bits (o, lse, dq, dk, dv: {same})",
                 all(same))
+    B, H, S, D = 1, 32, 2048, 128
+    assert fa.flash_route("dkv", bf, D, S, S) == "wgmma"
+    q, k, v, do = (randn(rng, (B, H, S, D), bf) for _ in range(4))
+    # an empty block's rows take the diagonal's lse, as the ring's combined
+    # lse would give them
+    lse_diag = fa.flash_attention_block(q, k, v, 0, 0)[1]
+    for label, q_off, k_off in (("full", S, 0), ("diagonal", 0, 0),
+                                ("empty", 0, S)):
+        o, lse = fa.flash_attention_block(q, k, v, q_off, k_off)
+        if label == "empty":
+            lse = lse_diag
+        dsum = (do.float() * o.float()).sum(-1)
+        runs = [fa.flash_attention_block_bwd_dkv(q, k, v, do, lse, dsum,
+                                                 q_off, k_off)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(*runs)]
+        require(f"wgmma block dK/dV [{B},{H},{S},{D}] {label} ({q_off},"
+                f"{k_off}): two launches give the same bits (dk, dv: "
+                f"{same})", all(same))
+        if label == "full":
+            _, dk_p, dv_p = fa.flash_attention_block_bwd_plain(
+                q, k, v, do, lse, dsum, q_off, k_off)
+            for g, got, want in (("dk", runs[0][0], dk_p),
+                                 ("dv", runs[0][1], dv_p)):
+                err = check(f"wgmma block dK/dV [{B},{H},{S},{D}] full "
+                            f"{g}", got, want, *BWD_TOL[bf])
+                WGMMA_ERR["dkv"] = max(WGMMA_ERR["dkv"], err)
+            del dk_p, dv_p
+        del o, lse, dsum, runs
 
 
 def flash_fwd_checks(rng, fa):
@@ -499,11 +548,15 @@ def flash_bwd_checks(rng, fa):
                                              causal=causal,
                                              dropout_keep=keep, seed=seed)
         route = fa.flash_route("dq", dtype, D, S, S)
-        name = f"flash bwd {label} {str(dtype).split('.')[-1]} (dq {route})"
+        route_kv = fa.flash_route("dkv", dtype, D, S, S)
+        name = (f"flash bwd {label} {str(dtype).split('.')[-1]} (dq {route}"
+                f", dkv {route_kv})")
         errs = [check(f"{name} {g}", got, want, *BWD_TOL[dtype])
                 for g, got, want in zip(("dq", "dk", "dv"), grads, plain)]
         if route == "wgmma":
             WGMMA_ERR["dq"] = max(WGMMA_ERR["dq"], errs[0])
+        if route_kv == "wgmma":
+            WGMMA_ERR["dkv"] = max(WGMMA_ERR["dkv"], *errs[1:])
         return grads, errs
 
     errs = {}
@@ -600,8 +653,10 @@ def block_checks(rng, fa):
                                                     ring=ring)
         plain = fa.flash_attention_block_bwd_plain(q, k, v, do, lse_p, dsum,
                                                    q_off, k_off, ring=ring)
-        route = fa.flash_route("fwd", dtype, D, S, sk, (ring or (1, 0))[0])
-        name = f"block {label} {_name(dtype)} ({route})"
+        n = (ring or (1, 0))[0]
+        route = fa.flash_route("fwd", dtype, D, S, sk, n)
+        route_kv = fa.flash_route("dkv", dtype, D, S, sk, n)
+        name = f"block {label} {_name(dtype)} ({route}, dkv {route_kv})"
         errs = [check(f"{name} o", o, o_p, *FWD_TOL[dtype])]
         live = lse_p > -1e30
         check(f"{name} lse (live rows)", torch.where(live, lse, 0.0),
@@ -627,6 +682,8 @@ def block_checks(rng, fa):
         if route == "wgmma":
             WGMMA_ERR["fwd"] = max(WGMMA_ERR["fwd"], errs[0])
             WGMMA_ERR["dq"] = max(WGMMA_ERR["dq"], errs[1])
+        if route_kv == "wgmma":
+            WGMMA_ERR["dkv"] = max(WGMMA_ERR["dkv"], *errs[2:])
         # K/V rows that no query of the step sees (each row of q sits at
         # q_off + i, each key at k_off + j; a ring rank at its block's)
         n, r = ring or (1, 0)
@@ -667,8 +724,8 @@ def block_checks(rng, fa):
                          ring=(4, r)))
         case(f"ring [1,2,1024,128] cp=4 step {r}", (1, 2, 1024, 128), 1024,
              0, 0, torch.float32, ring=(4, r))
-        # groups of 64 rows, which a 128-row wgmma q tile would straddle:
-        # the mma.sync kernels
+        # groups of 64 rows, which a 128-row wgmma q tile or kv item would
+        # straddle: the mma.sync kernels
         case(f"ring [2,4,256,64] cp=4 step {r}", (2, 4, 256, 64), 256, 0, 0,
              torch.bfloat16, ring=(4, r))
     return {"fwd": max(e[0] for e in errs), "dq": max(e[1] for e in errs),
@@ -929,10 +986,11 @@ class RouteCount:
 
 
 # the routes a flash launch takes (flash_attention.flash_route): the wgmma
-# forward and dQ kernels of the main paths, the mma.sync and plain-FMA
-# kernels of the other shapes; dK/dV has no wgmma kernel
+# forward, dQ and dK/dV kernels of the main paths, the mma.sync and
+# plain-FMA kernels of the other shapes
 ROUTES = {"flash_fwd_wgmma": ("fwd", "wgmma"),
           "flash_bwd_dq_wgmma": ("dq", "wgmma"),
+          "flash_bwd_dkv_wgmma": ("dkv", "wgmma"),
           "flash_fwd_mma": ("fwd", "mma"), "flash_fwd_simt": ("fwd", "simt"),
           "flash_bwd_dq_mma": ("dq", "mma"),
           "flash_bwd_dq_simt": ("dq", "simt"),
@@ -957,13 +1015,14 @@ def counters(fa, ce, sd, md):
 
 
 # the kernels of the {"kernels": [...]} line: the ten of the TPU kernels'
-# entry points, then the two wgmma kernels of this port
+# entry points, then the three wgmma kernels of this port
 KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
                 "flash_attention_bwd_dkv", "flash_attention_block_fwd",
                 "flash_attention_block_bwd_dq",
                 "flash_attention_block_bwd_dkv", "softmax_ce_fwd",
                 "softmax_ce_bwd", "pack_write", "row_gather",
-                "flash_fwd_wgmma", "flash_bwd_dq_wgmma")
+                "flash_fwd_wgmma", "flash_bwd_dq_wgmma",
+                "flash_bwd_dkv_wgmma")
 COUNTER_NAMES = KERNEL_NAMES + tuple(n for n in ROUTES
                                      if n not in KERNEL_NAMES)
 
@@ -973,15 +1032,15 @@ def expect_launches(**per_run):
     return {name: per_run.get(name, 0) for name in COUNTER_NAMES}
 
 
-def flash_launches(n, block=False, bwd=True, route="wgmma", dkv="mma"):
+def flash_launches(n, block=False, bwd=True, route="wgmma"):
     """Counts of ``n`` launches of the flash forward (and, with ``bwd``, of
     dQ and dK/dV) through the self-attention or the blockwise entry points,
-    by their routes: keywords for ``expect_launches``."""
+    all on ``route``: keywords for ``expect_launches``."""
     pre = "flash_attention_block" if block else "flash_attention"
     out = {f"{pre}_fwd": n, f"flash_fwd_{route}": n}
     if bwd:
         out.update({f"{pre}_bwd_dq": n, f"flash_bwd_dq_{route}": n,
-                    f"{pre}_bwd_dkv": n, f"flash_bwd_dkv_{dkv}": n})
+                    f"{pre}_bwd_dkv": n, f"flash_bwd_dkv_{route}": n})
     return out
 
 
@@ -1181,10 +1240,11 @@ def kernel_times(rng, fa, ce, B, S):
 
 
 def wgmma_times(fa):
-    """The wgmma forward and dQ kernels at bench_llama's mesh-less shape,
-    causal [8,12,1024,64] bf16: ms, bound (the causal (row, key) pairs'
-    products, or the bytes), plain ms and scaled_dot_product_attention
-    (causal) and its backward as the yardstick."""
+    """The wgmma forward, dQ and dK/dV kernels at bench_llama's mesh-less
+    shape, causal [8,12,1024,64] bf16: ms, bound (the causal (row, key)
+    pairs' products, or the bytes), plain ms and
+    scaled_dot_product_attention (causal) and its backward as the
+    yardstick."""
     c = LLAMA
     B, H, S, D = c["B"], c["heads"], c["S"], c["H"] // c["heads"]
     bf = torch.bfloat16
@@ -1192,6 +1252,8 @@ def wgmma_times(fa):
                    for _ in range(4))
     n, pairs = q.numel(), B * H * S * (S + 1) // 2
     o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    t_bwd_plain = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal=True), 3)
     dsum = (do.float() * o.float()).sum(-1)
     t_lib = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True), 20)
@@ -1210,10 +1272,13 @@ def wgmma_times(fa):
         "flash_bwd_dq_wgmma": dict(
             ms=time_ms(lambda: fa.flash_attention_bwd_dq(
                 q, k, v, do, lse, dsum, causal=True), 20),
-            plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(
-                q, k, v, o, lse, do, causal=True), 3),
-            library_ms=t_bwd_lib,
-            bound=bound(5 * n * 2 + 2 * B * H * S * 4, 6 * pairs * D, bf))}
+            plain_ms=t_bwd_plain, library_ms=t_bwd_lib,
+            bound=bound(5 * n * 2 + 2 * B * H * S * 4, 6 * pairs * D, bf)),
+        "flash_bwd_dkv_wgmma": dict(
+            ms=time_ms(lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, do, lse, dsum, causal=True), 20),
+            plain_ms=t_bwd_plain, library_ms=t_bwd_lib,
+            bound=bound(6 * n * 2 + 2 * B * H * S * 4, 8 * pairs * D, bf))}
     for name, r in out.items():
         log(f"kernel {name} [{B},{H},{S},{D}] bf16 causal: {r['ms']:.4f} "
             f"ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), plain "
@@ -1874,6 +1939,7 @@ def llama_paths(ht, models, ht_parallel, fns, rng, steps, seed):
         "mistral-width witness", step, fns, 3, w["B"] * w["S"],
         expect_launches(**flash_launches(n, block=True), softmax_ce_fwd=3,
                         softmax_ce_bwd=3), warmup=1, unit="tokens")
+    profile_steps("mistral-width witness", step, steps=1)
     out["mistral-width witness"] = (ms_w, None, None)
     ex.close()
     del ex, step
@@ -2052,7 +2118,7 @@ def cross_device_llama(ht, models, ht_parallel, fns, rng, seed):
     require(f"cross-device Llama: the card's step launched the block "
             f"kernels 8/8/8, f32 on the plain-FMA route ({launches})",
             launches == expect_launches(
-                **flash_launches(8, block=True, route="simt", dkv="simt"),
+                **flash_launches(8, block=True, route="simt"),
                 softmax_ce_fwd=1, softmax_ce_bwd=1))
     check("cross-device f32 Llama cp=4 train loss (card kernels vs CPU "
           "plain)", out_gpu[0].cpu(), out_cpu[0], 1e-5,
@@ -2295,6 +2361,8 @@ def main():
          "hetu_tpu/ops/pallas/flash_attention.py:266", WGMMA_ERR["fwd"]),
         ("flash_bwd_dq_wgmma", "cuda", src + "csrc/flash_attention_bwd.cu",
          "hetu_tpu/ops/pallas/flash_attention.py:448", WGMMA_ERR["dq"]),
+        ("flash_bwd_dkv_wgmma", "cuda", src + "csrc/flash_attention_bwd.cu",
+         "hetu_tpu/ops/pallas/flash_attention.py:463", WGMMA_ERR["dkv"]),
     ]
     # launches: each kernel's own training path (BERT, W&D at 337,000 rows
     # for pack_write, bench_moe for row_gather, the cp=4 Llama for the block
@@ -2310,7 +2378,8 @@ def main():
                     **{name: cp_launches[name] for name in KERNEL_NAMES
                        if name.startswith("flash_attention_block")},
                     **{name: meshless[name] for name in
-                       ("flash_fwd_wgmma", "flash_bwd_dq_wgmma")})
+                       ("flash_fwd_wgmma", "flash_bwd_dq_wgmma",
+                        "flash_bwd_dkv_wgmma")})
     times["pack_write"] = pw_times[WDL_ROWS]
     kernels = [{"name": name, "route": route, "source": source,
                 "replaces": replaces, "launches": launches[name],

@@ -41,18 +41,22 @@
 // tensors each reads and writes (3.35 TB/s), so both are bound by the
 // operations.  The kernel of a launch is the route the Python wrapper
 // names from dtype and shape (`flash_route`) and passes in:
-// - wgmma (dQ only; bf16, d = 64 or 128): `flash_bwd_dq_wgmma`, built for
-//   Hopper as flash_attention_fwd.cu's `flash_fwd_wgmma` (flash_hopper.cuh):
-//   a persistent block per SM, a producer warp feeding each 128-row item's
+// - wgmma (bf16, d = 64 or 128): `flash_bwd_dq_wgmma`, built for Hopper
+//   as flash_attention_fwd.cu's `flash_fwd_wgmma` (flash_hopper.cuh): a
+//   persistent block per SM, a producer warp feeding each 128-row item's
 //   Q and dO once and its K/V tiles of 64 keys by TMA into 3 stages on
 //   mbarriers, two consumer warpgroups running S = Q K^T and dP = dO V^T
 //   on wgmma from shared memory and dQ += dS K with dS from registers and
 //   K through the descriptor's transpose bit.  64 keys a tile keep two
 //   64 x 64 score tiles and the 64 x d accumulator within the 168
-//   registers a thread of a 9-warp block gets.
-// - mma (bf16 with d % 8 == 0 and d <= 128, and every bf16 dK/dV of those
-//   heads): mma.sync.m16n8k16, 4 warps of 16 rows each, 64x64 score tiles
-//   in registers, the Q/dO/K/V tiles in shared memory.
+//   registers a thread of a 9-warp block gets.  `flash_bwd_dkv_wgmma`,
+//   the same pieces turned around: an item of 128 keys whose K/V stay in
+//   shared memory, the q tiles streamed past them, two 64 x d accumulators
+//   a warpgroup in an 8-warp block of 255 registers a thread (its header
+//   below).
+// - mma (bf16 with d % 8 == 0 and d <= 128 that wgmma does not take):
+//   mma.sync.m16n8k16, 4 warps of 16 rows each, 64x64 score tiles in
+//   registers, the Q/dO/K/V tiles in shared memory.
 // - simt (f32, and bf16 heads the others do not take): plain-FMA kernels
 //   that stay in f32 (no TF32).
 
@@ -633,6 +637,415 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 }
 
 // -------------------------------------------------------------------------
+// Hopper dK/dV kernel for bf16 heads of d = 64 and 128 (`_bwd_dkv_kernel`,
+// flash_attention.py:337-407), persistent as the other wgmma kernels.  A
+// work item is (bh, a kv tile of 128 keys); each of the block's 2 consumer
+// warpgroups owns 64 of its keys, keeps their K and V rows in shared
+// memory for the whole item and holds their dK and dV accumulators, so
+// each dK/dV row is written by one warpgroup: no atomics, the same bits on
+// every launch.  An item that no query sees writes dk = dv = 0 and loads
+// nothing.  The q tiles of 64 rows that see the item stream through a ring
+// of stages, each holding Q and dO (TMA), the tile's lse and D (cp.async;
+// zeros past the group's end, where Q and dO are TMA's zero rows and
+// contribute nothing) and dropout row keys, completing on its `full`
+// mbarrier.  An item's K/V land in one of two buffers, so they load under
+// the previous item's last tiles.  Per q tile and warpgroup: S^T = K Q^T
+// and dP^T = V dO^T on wgmma from shared memory (64 keys x 64 queries),
+// then P, P~ = dropout(P) / keep and dS = P * (dropout(dP) / keep - D) in
+// registers, and dV += P~^T dO, dK += dS^T Q on wgmma with P~^T and dS^T
+// from registers (their accumulators converted in place to A fragments)
+// and dO, Q through the descriptor's transpose bit.  Scores come out
+// transposed, so the key mask is constant per thread and lse, D and the
+// row keys are per column.
+//
+// Registers: at d = 128 a warpgroup holds two 64 x 128 f32 accumulators
+// (128 a thread), S^T and dP^T (64) and their bf16 fragments, more than
+// the 168 a thread of the 9-warp block of the other two kernels.  So the
+// block has 8 warps (255 registers a thread) and no producer warp: warp 0
+// issues the loads between its own products (`feed`), waiting for a stage
+// only when the tile it is about to read is not yet loaded.  The dropout
+// code is a template parameter: compiled in where there is no seed, it
+// slowed the kernel (registers and scheduling), though it never ran.  At
+// d = 128 the two warpgroups take turns to issue their products (named
+// barriers), so that one forms P and dS while the other's products run;
+// at d = 64, where the elementwise work (the dropout hash on BERT's path)
+// outweighs the products, the turns made it slower.  PERF.md has both
+// measurements (tools/kernel_ab against the kernel without them).
+
+constexpr int kDkvBN = 128;       // keys of a work item, 64 a warpgroup
+constexpr int kDkvBQ = 64;        // q rows of a streamed tile
+constexpr int kDkvThreads = 256;  // 2 consumer warpgroups
+
+template <int D>
+struct DkvTiles {
+  static constexpr int BN = kDkvBN, BQ = kDkvBQ;
+  // stages of Q and dO: 4 at d = 64 (64 KB), 2 at d = 128 (64 KB); with the
+  // two K/V buffers (64 KB, 128 KB) and the per-row floats within 227 KB
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kKvBytes = BN * D * 2;    // one K or V buffer
+  static constexpr int kTileBytes = BQ * D * 2;  // one Q or dO tile
+  // a stage's per-row values: lse and D interleaved ({lse 2i, lse 2i + 1,
+  // D 2i, D 2i + 1} for rows 2i, 2i + 1: one 16-byte read a column pair),
+  // then the dropout row keys
+  static constexpr size_t kSmem = 1024 + 4 * (size_t)kKvBytes +
+                                  (size_t)kStages * 2 * kTileBytes +
+                                  kStages * 3 * BQ * sizeof(float) +
+                                  (4 + 2 * kStages) * sizeof(uint64_t);
+};
+
+// A dK/dV work item: the 128 keys from k0 of (batch, head) bh, the K/V
+// rows up to ke of its ring group's block, and the q tiles [first, n_q)
+// of 64 rows from qb that see any of them.
+struct DkvItem {
+  int k0, bh, ke, qb, first, n_q;
+};
+
+// Item i of n_kt kv tiles a ring group.  Causally the tiles with the most
+// q tiles come first (each group's first tiles of all heads, then the ones
+// after them): the reverse of the q-tile items, whose heaviest tiles are
+// the last.  Otherwise one head's tiles side by side, which stream the
+// same Q and dO through L2.
+__device__ __forceinline__ DkvItem dkv_item(int i, int n_kt, int n_bh,
+                                            int causal, const Blocks& bl) {
+  DkvItem w;
+  int kt;
+  if (causal) {
+    const int rest = i % (n_bh * bl.n);
+    w.bh = rest % n_bh;
+    kt = rest / n_bh * n_kt + i / (n_bh * bl.n);
+  } else {
+    kt = i % (n_kt * bl.n);
+    w.bh = i / (n_kt * bl.n);
+  }
+  const int grp = kt / n_kt;
+  w.k0 = grp * bl.gk() + kt % n_kt * kDkvBN;
+  w.ke = (grp + 1) * bl.gk();
+  w.qb = bl.q_begin(grp);
+  w.n_q = (bl.gq() + kDkvBQ - 1) / kDkvBQ;
+  w.first = first_q_tile(bl, causal, w.k0, w.qb, kDkvBQ);
+  return w;
+}
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ dsum,
+                        const float* __restrict__ mask,
+                        const int32_t* __restrict__ seed,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv,
+                        int n_bh, int H, Blocks bl, int causal, float scale,
+                        float scale_log2, uint32_t thr, float inv_keep) {
+  using T = DkvTiles<D>;
+  constexpr int BN = T::BN, BQ = T::BQ, NS = T::kStages;
+  // d = 128: the warpgroups take turns to issue their products (below)
+  constexpr bool kTurns = D == 128;
+  extern __shared__ __align__(1024) unsigned char smem_hopper[];
+  unsigned char* sKV = align1024(smem_hopper);  // buffer b: K, then V
+  unsigned char* sQ = sKV + 4 * T::kKvBytes;     // stage s: Q, then dO
+  float* sLD = reinterpret_cast<float*>(sQ + NS * 2 * T::kTileBytes);
+  uint32_t* sRk = reinterpret_cast<uint32_t*>(sLD + NS * 2 * BQ);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sRk + NS * BQ);
+
+  const uint32_t bar0 = smem_u32(bars);
+  // barriers: K/V buffer b full, K/V buffer b free, stage s full, stage s
+  // free
+  auto kv_full = [&](int b) { return bar0 + 8u * b; };
+  auto kv_free = [&](int b) { return bar0 + 8u * (2 + b); };
+  auto full = [&](int s) { return bar0 + 8u * (4 + s); };
+  auto empty = [&](int s) { return bar0 + 8u * (4 + NS + s); };
+  auto kv_buf = [&](int b) { return smem_u32(sKV) + b * 2 * T::kKvBytes; };
+  auto q_tile = [&](int s) { return smem_u32(sQ) + s * 2 * T::kTileBytes; };
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(kv_full(b), 1);
+      mbar_init(kv_free(b), 8);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full(s), 1 + 32);  // warp 0's TMA lane, its 32 cp.async
+      mbar_init(empty(s), 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int n_kt = (bl.gk() + BN - 1) / BN, n_items = n_kt * bl.n * n_bh;
+  const uint32_t sd = DROP ? hetu_dropout::fmix32((uint32_t)*seed) : 0u;
+
+  // -- the feed: warp 0's cursor over the tiles this block loads ----------
+  // the item of snake index f_it (f_w, the f_ii-th with a q tile), its next
+  // q tile f_j, and f_t tiles loaded so far
+  int f_it = -1, f_j = 0, f_t = 0, f_ii = 0;
+  uint32_t f_key = 0u;  // its head's dropout key: row_key = mix(f_key, row)
+  bool f_live = true;
+  DkvItem f_w{};
+  auto feed_next_item = [&]() {
+    for (;;) {
+      const int i = snake_item(++f_it, blockIdx.x, gridDim.x);
+      if (i >= n_items) {
+        f_live = false;
+        return;
+      }
+      f_w = dkv_item(i, n_kt, n_bh, causal, bl);
+      if (f_w.first < f_w.n_q) {
+        f_j = f_w.first;
+        f_key = hetu_dropout::mix(sd, f_w.bh);
+        return;
+      }
+    }
+  };
+  // whether the next tile may load now: its stage and, on an item's first
+  // tile, its K/V buffer released by both warpgroups; `must`: wait for them
+  auto feed_ready = [&](bool must) -> bool {
+    const int s = f_t % NS, b = f_ii & 1;
+    const uint32_t ps = ((f_t / NS) & 1) ^ 1, pb = ((f_ii >> 1) & 1) ^ 1;
+    const bool kv = f_j == f_w.first;
+    if (must) {
+      mbar_wait(empty(s), ps);
+      if (kv) mbar_wait(kv_free(b), pb);
+      return true;
+    }
+    return __all_sync(0xffffffffu,
+                      mbar_test(empty(s), ps) &&
+                          (!kv || mbar_test(kv_free(b), pb))) != 0;
+  };
+  // the next tile's loads (warp 0): the rows' lse and D by cp.async and
+  // their dropout row keys, then (lane 0) the item's K/V on its first tile
+  // and the tile's Q and dO by TMA
+  auto feed_load = [&]() {
+    const int s = f_t % NS, q0 = f_w.qb + f_j * BQ, qe = f_w.qb + bl.gq();
+    for (int x = lane; x < BQ; x += 32) {
+      const int row = q0 + x;
+      const size_t at = (size_t)f_w.bh * bl.Sq + (row < qe ? row : q0);
+      float* ld = sLD + s * 2 * BQ + x / 2 * 4 + x % 2;
+      cp_async_4(smem_u32(ld), lse + at, row < qe);
+      cp_async_4(smem_u32(ld + 2), dsum + at, row < qe);
+      if (DROP) sRk[s * BQ + x] = hetu_dropout::mix(f_key, row);
+    }
+    cp_async_mbar_arrive(full(s));
+    __syncwarp();
+    if (lane == 0) {
+      if (f_j == f_w.first) {
+        const int b = f_ii & 1;
+        mbar_arrive_expect_tx(kv_full(b), 2 * T::kKvBytes);
+#pragma unroll
+        for (int h = 0; h < D / 64; ++h) {
+          tma_load_3d(kv_buf(b) + h * BN * 128, &tk, kv_full(b), h * 64,
+                      f_w.k0, f_w.bh);
+          tma_load_3d(kv_buf(b) + T::kKvBytes + h * BN * 128, &tv,
+                      kv_full(b), h * 64, f_w.k0, f_w.bh);
+        }
+      }
+      mbar_arrive_expect_tx(full(s), 2 * T::kTileBytes);
+#pragma unroll
+      for (int h = 0; h < D / 64; ++h) {
+        tma_load_3d(q_tile(s) + h * BQ * 128, &tq, full(s), h * 64, q0,
+                    f_w.bh);
+        tma_load_3d(q_tile(s) + T::kTileBytes + h * BQ * 128, &tdo, full(s),
+                    h * 64, q0, f_w.bh);
+      }
+    }
+    ++f_t;
+    if (++f_j == f_w.n_q) {
+      ++f_ii;
+      feed_next_item();
+    }
+  };
+  // loads the tiles below `want` whose stages are free, and waits to load
+  // every tile below `need`
+  auto feed = [&](int need, int want) {
+    while (f_live && f_t < want && feed_ready(f_t < need)) feed_load();
+  };
+  if (warp == 0) {
+    if (lane == 0) {
+      tma_prefetch(&tq);
+      tma_prefetch(&tdo);
+      tma_prefetch(&tk);
+      tma_prefetch(&tv);
+    }
+    feed_next_item();
+  }
+
+  // -- consumers: warpgroup wg owns keys [k0 + 64 wg, k0 + 64 wg + 64) ----
+  const int wg = warp / 4;
+  const int g = lane >> 2, t = lane & 3;
+  const int dpos = bl.k_off - bl.q_off;
+  int ii = 0, tj = 0;
+  // the turns (d = 128): warpgroup wg issues its products after `bar.sync
+  // 1 + wg` and hands the turn over by `bar.arrive 2 - wg`; warpgroup 0
+  // goes first, and each takes two turns a q tile (S^T and dP^T, then dV
+  // and dK), computing or not, so the turns stay paired
+  if (kTurns && wg == 1) named_bar_arrive(1, kDkvThreads);
+  for (int it = 0;; ++it) {
+    const int i = snake_item(it, blockIdx.x, gridDim.x);
+    if (i >= n_items) break;
+    const DkvItem w = dkv_item(i, n_kt, n_bh, causal, bl);
+    const size_t kbase = (size_t)w.bh * bl.Sk;
+    if (w.first >= w.n_q) {  // no query sees these keys: dk = dv = 0
+      for (int x = threadIdx.x; x < BN * D / 8; x += kDkvThreads) {
+        const int key = w.k0 + x / (D / 8);
+        if (key < w.ke) {
+          const size_t off = (kbase + key) * D + x % (D / 8) * 8;
+          *reinterpret_cast<uint4*>(dk + off) = make_uint4(0u, 0u, 0u, 0u);
+          *reinterpret_cast<uint4*>(dv + off) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+      continue;
+    }
+    const int kw = w.k0 + wg * 64;  // this warpgroup's first key
+    const int key_a = kw + (warp % 4) * 16 + g;
+    const int keys[2] = {key_a, key_a + 8};
+    // its first q tile; keys past the block's end (ragged S) have no work
+    const int my_first =
+        kw < w.ke ? first_q_tile(bl, causal, kw, w.qb, BQ) : w.n_q;
+    float kmask[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      kmask[r] = keys[r] >= w.ke
+                     ? -INFINITY
+                     : (mask ? mask[(size_t)(w.bh / H) * bl.Sk + keys[r]] *
+                                   kLog2e
+                             : 0.f);
+    const bool masked = mask != nullptr || kw + 64 > w.ke;
+    float dk_acc[D / 2], dv_acc[D / 2], s[BQ / 2], dp[BQ / 2];
+#pragma unroll
+    for (int x = 0; x < D / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
+#pragma unroll
+    for (int x = 0; x < BQ / 2; ++x) s[x] = dp[x] = 0.f;
+    const int b = ii & 1;
+    const uint32_t k_wg = kv_buf(b) + wg * 64 * 128;
+    const uint32_t v_wg = k_wg + T::kKvBytes;
+
+    for (int j = w.first; j < w.n_q; ++j, ++tj) {
+      const int st = tj % NS, q0 = w.qb + j * BQ;
+      // warp 0 loads this tile (and, on the item's first, its K/V) unless
+      // it has already
+      if (warp == 0) feed(tj + 1, tj + NS);
+      if (j == w.first) mbar_wait(kv_full(b), (ii >> 1) & 1);
+      mbar_wait(full(st), (tj / NS) & 1);
+      if (kTurns) {
+        named_bar_sync(1 + wg, kDkvThreads);
+        if (j < my_first) {  // two turns without products
+          named_bar_arrive(2 - wg, kDkvThreads);
+          named_bar_sync(1 + wg, kDkvThreads);
+          named_bar_arrive(2 - wg, kDkvThreads);
+        }
+      }
+      if (j >= my_first) {
+        const uint32_t qt = q_tile(st), dot = qt + T::kTileBytes;
+        // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries each
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t ko = (kk / 4) * BN * 128 + (kk % 4) * 32;
+          const uint32_t qo = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+          wgmma_ss<BQ, 0>(s, desc_sw128(k_wg + ko, 16, 1024),
+                          desc_sw128(qt + qo, 16, 1024), kk > 0);
+          wgmma_ss<BQ, 0>(dp, desc_sw128(v_wg + ko, 16, 1024),
+                          desc_sw128(dot + qo, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        if (kTurns) named_bar_arrive(2 - wg, kDkvThreads);
+        // the loads of the stage the other warpgroup has released since
+        if (warp == 0) feed(0, tj + NS);
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // P from the base-2 scores and the columns' lse: the key mask (with
+        // the keys past the block's end) only where the warpgroup has one,
+        // the causal exclusion only on tiles the diagonal crosses
+        const bool diag = causal && kw + 63 + dpos > q0;
+        const float* tld = sLD + st * 2 * BQ;
+        const uint32_t* tr = sRk + st * BQ;
+        // P~^T and dS^T as bf16 A fragments, one per 16 queries
+        uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+        for (int x = 0; x < BQ / 2; x += 2) {
+          const int r = (x >> 1) & 1, col = (x / 4) * 8 + 2 * t;
+          // lse and D of the columns col, col + 1
+          const float4 ld = *reinterpret_cast<const float4*>(tld + col * 2);
+          float x0, x1;
+          if (masked || diag) {
+            x0 = s[x] * scale_log2 + kmask[r];
+            x1 = s[x + 1] * scale_log2 + kmask[r];
+            if (diag) {
+              if (keys[r] + dpos > q0 + col) x0 = -INFINITY;
+              if (keys[r] + dpos > q0 + col + 1) x1 = -INFINITY;
+            }
+            x0 -= ld.x * kLog2e;
+            x1 -= ld.y * kLog2e;
+          } else {
+            x0 = fmaf(s[x], scale_log2, -ld.x * kLog2e);
+            x1 = fmaf(s[x + 1], scale_log2, -ld.y * kLog2e);
+          }
+          const float p0 = ex2(x0), p1 = ex2(x1);
+          float pd0 = p0, pd1 = p1, dp0 = dp[x], dp1 = dp[x + 1];
+          if (DROP) {
+            const uint2 rk = *reinterpret_cast<const uint2*>(tr + col);
+            if (hetu_dropout::keep(rk.x, keys[r], thr)) {
+              pd0 *= inv_keep;
+              dp0 *= inv_keep;
+            } else {
+              pd0 = dp0 = 0.f;
+            }
+            if (hetu_dropout::keep(rk.y, keys[r], thr)) {
+              pd1 *= inv_keep;
+              dp1 *= inv_keep;
+            } else {
+              pd1 = dp1 = 0.f;
+            }
+          }
+          pa[x / 8][(x / 2) % 4] = pack_bf16(pd0, pd1);
+          da[x / 8][(x / 2) % 4] =
+              pack_bf16(p0 * (dp0 - ld.z), p1 * (dp1 - ld.w));
+        }
+
+        // dV += P~^T dO and dK += dS^T Q: BQ / 16 k-steps of 16 queries,
+        // dO and Q MN-major (transposed)
+        if (kTurns) named_bar_sync(1 + wg, kDkvThreads);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          wgmma_rs<D, 1>(dv_acc, pa[kk],
+                         desc_sw128(dot + kk * 2048, BQ * 128, 1024), 1);
+          wgmma_rs<D, 1>(dk_acc, da[kk],
+                         desc_sw128(qt + kk * 2048, BQ * 128, 1024), 1);
+        }
+        wgmma_commit();
+        if (kTurns) named_bar_arrive(2 - wg, kDkvThreads);
+        wgmma_wait<0>();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+    // this warpgroup's products are done with the K/V buffer
+    __syncwarp();
+    if (lane == 0) mbar_arrive(kv_free(b));
+    ++ii;
+
+#pragma unroll
+    for (int x = 0; x < D / 2; x += 2) {
+      const int r = (x >> 1) & 1, col = (x / 4) * 8 + 2 * t;
+      if (keys[r] < w.ke) {
+        const size_t off = (kbase + keys[r]) * D + col;
+        *reinterpret_cast<uint32_t*>(dk + off) =
+            pack_bf16(dk_acc[x] * scale, dk_acc[x + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + off) =
+            pack_bf16(dv_acc[x], dv_acc[x + 1]);
+      }
+    }
+  }
+  // the hand-over that warpgroup 1's last turn left
+  if (kTurns && wg == 0) named_bar_sync(1, kDkvThreads);
+}
+
+// -------------------------------------------------------------------------
 // Plain-FMA kernels for f32 (and bf16 heads wider than 128), 4 warps, each
 // lane owning NC of the d <= 32 * NC output columns.  dQ: 16 query rows per
 // block (4 per warp) against kv tiles of 32 keys, one key per lane.  dK/dV:
@@ -1021,21 +1434,60 @@ cudaError_t launch_dq_wgmma(const Args& a) {
   return cudaGetLastError();
 }
 
+template <int D, bool DROP>
+cudaError_t launch_dkv_wgmma(const Args& a) {
+  using T = DkvTiles<D>;
+  const int n_bh = a.B * a.H;
+  // a kv item must lie in one ring group
+  if (a.bl.n > 1 && (a.bl.Sk / a.bl.n) % T::BN != 0)
+    return cudaErrorInvalidValue;
+  const long long n_items =
+      (long long)((a.bl.Sk / a.bl.n + T::BN - 1) / T::BN) * a.bl.n * n_bh;
+  if (n_items > INT_MAX) return cudaErrorInvalidValue;
+  CUtensorMap tq, tdo, tk, tv;
+  int blocks = 0;
+  cudaError_t err = encode_rows(&tq, a.q, n_bh, a.bl.Sq, D, T::BQ);
+  if (err == cudaSuccess)
+    err = encode_rows(&tdo, a.dout, n_bh, a.bl.Sq, D, T::BQ);
+  if (err == cudaSuccess)
+    err = encode_rows(&tk, a.k, n_bh, a.bl.Sk, D, T::BN);
+  if (err == cudaSuccess)
+    err = encode_rows(&tv, a.v, n_bh, a.bl.Sk, D, T::BN);
+  if (err == cudaSuccess) err = persistent_grid((int)n_items, &blocks);
+  if (err == cudaSuccess)
+    err = prepare(flash_bwd_dkv_wgmma<D, DROP>, T::kSmem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_wgmma<D, DROP>
+      <<<blocks, kDkvThreads, T::kSmem, a.stream>>>(
+      tq, tdo, tk, tv, a.lse, a.dsum, a.mask, a.seed,
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), n_bh, a.H, a.bl,
+      a.causal, a.scale, a.scale_log2, a.thr, a.inv_keep);
+  return cudaGetLastError();
+}
+
 // The kernel that `route` names (the Python wrapper's `flash_route`; it is
 // never chosen here), for dQ (which = 0) or dK/dV (which = 1): 2 = wgmma
-// (dQ only: bf16, d = 64 or 128, Sq and Sk >= 128, a ring group a whole
-// number of 128-row q tiles), 1 = mma.sync (bf16, d % 8 == 0, d <= 128),
-// 0 = plain FMA (f32, or bf16 heads the others do not take, d <= 512).  A
-// route the shape does not fit is refused.
+// (bf16, d = 64 or 128, Sq and Sk >= 128; in a ring, a group a whole
+// number of the kernel's 128-row tiles: q rows for dQ, K/V rows for
+// dK/dV), 1 = mma.sync (bf16, d % 8 == 0, d <= 128), 0 = plain FMA (f32,
+// or bf16 heads the others do not take, d <= 512).  A route the shape does
+// not fit is refused.
 cudaError_t dispatch(int which, int route, int is_bf16, const Args& a) {
   if (a.B <= 0 || a.H <= 0 || a.d <= 0 || !valid_blocks(a.bl, kTile))
     return cudaErrorInvalidValue;
   if (route == 2) {
-    if (which != 0 || !is_bf16 || a.bl.Sq < kHopperBM ||
-        a.bl.Sk < kHopperBM)
+    if (!is_bf16 || a.bl.Sq < kHopperBM || a.bl.Sk < kHopperBM)
       return cudaErrorInvalidValue;
-    if (a.d == 64) return launch_dq_wgmma<64>(a);
-    if (a.d == 128) return launch_dq_wgmma<128>(a);
+    if (which == 0) {
+      if (a.d == 64) return launch_dq_wgmma<64>(a);
+      if (a.d == 128) return launch_dq_wgmma<128>(a);
+    } else if (a.d == 64) {
+      return a.seed ? launch_dkv_wgmma<64, true>(a)
+                    : launch_dkv_wgmma<64, false>(a);
+    } else if (a.d == 128) {
+      return a.seed ? launch_dkv_wgmma<128, true>(a)
+                    : launch_dkv_wgmma<128, false>(a);
+    }
     return cudaErrorInvalidValue;
   }
   if (route == 1) {

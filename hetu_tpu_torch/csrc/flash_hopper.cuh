@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the wgmma flash kernels
 // (flash_attention_fwd.cu `flash_fwd_wgmma`, flash_attention_bwd.cu
-// `flash_bwd_dq_wgmma`): mbarriers, TMA tile loads through tensor maps
-// encoded on the host, wgmma descriptors and the wgmma products the two
-// kernels issue, all in inline PTX (cuda_guide.md: TMA, WGMMA, Mbarrier).
+// `flash_bwd_dq_wgmma` and `flash_bwd_dkv_wgmma`): mbarriers, TMA tile
+// loads through tensor maps encoded on the host, cp.async copies that
+// complete on an mbarrier, wgmma descriptors and the wgmma products the
+// kernels issue, all in inline PTX.
 //
 // Shared-memory layout of a tile: a [rows, d] bf16 tile is stored as d / 64
 // column halves of [rows][64], each row 128 bytes, each half swizzled by
@@ -40,11 +41,11 @@
 
 namespace hetu_hopper {
 
-// the block of both wgmma kernels: 2 consumer warpgroups of 64 query rows
-// each (a 128-row q tile) and 1 producer warp.  ptxas allocates the
-// registers of the whole kernel at its 288-thread bound, 168 a thread (one
-// SM quarter holds 3 of the 9 warps): the consumers' accumulators, scores
-// and operands fit in that.
+// the block of the forward and dQ wgmma kernels: 2 consumer warpgroups of
+// 64 query rows each (a 128-row q tile) and 1 producer warp.  ptxas
+// allocates the registers of the whole kernel at its 288-thread bound, 168
+// a thread (one SM quarter holds 3 of the 9 warps): the consumers'
+// accumulators, scores and operands fit in that.
 constexpr int kHopperThreads = 288;
 constexpr int kHopperBM = 128;
 
@@ -145,6 +146,20 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   return done != 0;
 }
 
+// whether the phase of parity `parity` has completed, without waiting
+// (try_wait may suspend the thread for a while before it answers no)
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred P1;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, P1;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 // Waits until the phase of parity `parity` has completed (the barrier's
 // current phase parity differs from it).  A wait of 2^35 cycles (~20 s) can
 // only be a lost arrival: the kernel traps, and the launch fails with an
@@ -154,6 +169,34 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   const long long t0 = clock64();
   while (!mbar_try_wait(bar, parity))
     if (clock64() - t0 > (1ll << 35)) __trap();
+}
+
+// named barrier `id` (1-15; 0 is __syncthreads') of `n` threads: sync
+// waits for all n to arrive, arrive counts this warp's threads and goes on
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// -- cp.async (4-byte copies that complete on an mbarrier) -------------------
+
+// 4 bytes from global memory at `src` into shared memory at `dst`, or 4 zero
+// bytes if !valid (src is then not read), without waiting for them
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(__cvta_generic_to_global(src)), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// one arrival on `bar` once this thread's earlier cp.async copies have
+// landed; the arrival is one of the barrier's initial count
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
 // -- TMA ---------------------------------------------------------------------

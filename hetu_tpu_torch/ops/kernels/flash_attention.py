@@ -13,9 +13,10 @@ it.  The TPU kernels' 512-row blocks were sized for v5e VMEM; the Hopper
 kernels use tiles that fit shared memory and mask ragged S and d inside
 the kernel instead of padding.  Each launch takes the kernel that
 ``flash_route`` names from its dtype and shape, never another on failure:
-the wgmma forward and dQ kernels (128-row q tiles, TMA-fed K/V stages)
-for bf16 heads of 64 and 128, the mma.sync kernels for the other bf16
-heads up to 128 and for dK/dV, the plain-FMA kernels for f32 and the rest.
+the wgmma kernels for bf16 heads of 64 and 128 (the forward and dQ on
+128-row q tiles with TMA-fed K/V stages, dK/dV on 128-key items with
+TMA-fed Q/dO stages), the mma.sync kernels for the other bf16 heads up to
+128, the plain-FMA kernels for f32 and the rest.
 ``route_launches`` counts the launches of each (kernel, route).
 
 Dropout: the TPU kernels reseed the TPU PRNG per (seed, tile).  Here an
@@ -121,7 +122,7 @@ def _supported(q, k, v, mask):
 # -- routes ------------------------------------------------------------------
 
 _ROUTE_CODE = {"simt": 0, "mma": 1, "wgmma": 2}  # the C entry points' route
-WGMMA_ROWS = 128  # q rows of a wgmma block, the least Sq and Sk it takes
+WGMMA_ROWS = 128  # rows of a wgmma item, the least Sq and Sk it takes
 
 # launches of each kernel ("fwd", "dq", "dkv": the self-attention and the
 # blockwise entry points together) by route, beside the entry points' own
@@ -133,18 +134,21 @@ def flash_route(kernel, dtype, d, sq, sk, n=1):
     """The CUDA kernel that a launch of ``kernel`` ("fwd", "dq" or "dkv")
     takes, a pure function of dtype and shape:
 
-    - "wgmma" (Hopper: TMA-fed K/V stages, wgmma products) for the forward
-      and dQ on bf16 heads of d = 64 or 128 with Sq, Sk >= 128 and, in a
-      ring of n > 1 groups, groups of whole 128-row q tiles;
+    - "wgmma" (Hopper: TMA-fed stages, wgmma products) on bf16 heads of
+      d = 64 or 128 with Sq, Sk >= 128 and, in a ring of n > 1 groups,
+      groups of whole 128-row tiles of the rows the kernel tiles by: the
+      q rows (Sq / n) for the forward and dQ, whose items are 128-row q
+      tiles, and the K/V rows (Sk / n) for dK/dV, whose items are 128-key
+      kv tiles;
     - "mma" (mma.sync m16n8k16) for the other bf16 heads with d % 8 == 0
-      and d <= 128, and for dK/dV;
+      and d <= 128;
     - "simt" (plain FMA, f32 accumulation) for f32 and the remaining bf16
       heads (d <= 512).
     """
     if dtype == torch.bfloat16:
-        if (kernel in ("fwd", "dq") and d in (64, 128)
-                and min(sq, sk) >= WGMMA_ROWS
-                and (n == 1 or (sq // n) % WGMMA_ROWS == 0)):
+        group = sk // n if kernel == "dkv" else sq // n
+        if (d in (64, 128) and min(sq, sk) >= WGMMA_ROWS
+                and (n == 1 or group % WGMMA_ROWS == 0)):
             return "wgmma"
         if d % 8 == 0 and d <= 128:
             return "mma"

@@ -1,23 +1,28 @@
-"""Time the flash-attention forward and dQ kernels of two checkouts on one
-card.
+"""Time the flash-attention forward, dQ and dK/dV kernels of two checkouts
+on one card.
 
     python3 -m hetu_tpu_torch.tools.kernel_ab OLD_DIR NEW_DIR
 
 Each directory is the root of a checkout holding ``hetu_tpu_torch/``.  The
-kernels of each are built from that checkout's sources and timed in its
-own process, in the order old, new, new, old, on the same seeded inputs,
-through the public wrappers (so each checkout takes its own route for a
-shape), at the main paths' shapes, bf16:
+kernels of each are built from that checkout's sources, both checkouts'
+first, and one run of the new checkout is discarded, so that no timed run
+finds the card cooled by idle seconds (on an H100, a run right after a
+build read up to 15% faster than the same code a few runs later).  Then
+each checkout is timed in its own process, in the order old, new, new,
+old, on the same seeded inputs, through the public wrappers (so each
+checkout takes its own route for a shape), at the main paths' shapes,
+bf16:
 
 - BERT-base, [64,12,512,64] with a BERT key mask: the forward at keep 1
-  and keep 0.9, dQ at keep 0.9;
-- the mesh-less Llama, causal [8,12,1024,64]: the forward and dQ;
-- the cp=4 ring step at [8,12,1024,64]: the blockwise forward and dQ, the
-  mean over the 4 steps;
+  and keep 0.9, dQ and dK/dV at keep 0.9;
+- the mesh-less Llama, causal [8,12,1024,64]: the forward, dQ and dK/dV;
+- the cp=4 ring step at [8,12,1024,64]: the blockwise forward, dQ and
+  dK/dV, the mean over the 4 steps;
 - the Mistral-width witness's block, q and K/V [1,32,2048,128]: the full
-  block (q at 2048, K/V at 0) and the diagonal one, forward and dQ;
-- the host's time per call (microseconds, not ms) of the forward and dQ
-  wrappers at [1,1,128,64], where the card outruns the host.
+  block (q at 2048, K/V at 0), the diagonal one and the empty one (K/V at
+  2048, the backward from the diagonal's lse), forward, dQ and dK/dV;
+- the host's time per call (microseconds, not ms) of the forward, dQ and
+  dK/dV wrappers at [1,1,128,64], where the card outruns the host.
 
 Each run prints, per case, the median over 5 windows of 20 calls of the
 device time of the call's kernels (torch.profiler), or the host's mean
@@ -83,6 +88,8 @@ o, lse = fa.flash_attention_fwd(q, k, v, **kw)
 dsum = (do.float() * o.float()).sum(-1)
 out["bert dq keep 0.9"] = median_ms(lambda: fa.flash_attention_bwd_dq(
     q, k, v, do, lse, dsum, **kw))
+out["bert dkv keep 0.9"] = median_ms(lambda: fa.flash_attention_bwd_dkv(
+    q, k, v, do, lse, dsum, **kw))
 # the mesh-less Llama, and the cp=4 ring step over the same tensors
 B, H, S, D = 8, 12, 1024, 64
 q, k, v, do = (rand(B, H, S, D) for _ in range(4))
@@ -92,6 +99,8 @@ o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
 dsum = (do.float() * o.float()).sum(-1)
 out["llama causal dq"] = median_ms(lambda: fa.flash_attention_bwd_dq(
     q, k, v, do, lse, dsum, causal=True))
+out["llama causal dkv"] = median_ms(lambda: fa.flash_attention_bwd_dkv(
+    q, k, v, do, lse, dsum, causal=True))
 out["ring step fwd"] = sum(median_ms(
     lambda: fa.flash_attention_block(q, k, v, 0, 0, ring=(4, r)))
     for r in range(4)) / 4
@@ -99,18 +108,26 @@ out["ring step dq"] = sum(median_ms(
     lambda: fa.flash_attention_block_bwd_dq(q, k, v, do, lse, dsum, 0, 0,
                                             ring=(4, r)))
     for r in range(4)) / 4
+out["ring step dkv"] = sum(median_ms(
+    lambda: fa.flash_attention_block_bwd_dkv(q, k, v, do, lse, dsum, 0, 0,
+                                             ring=(4, r)))
+    for r in range(4)) / 4
 # the witness's block
 B, H, S, D = 1, 32, 2048, 128
 q, k, v, do = (rand(B, H, S, D) for _ in range(4))
 lse = fa.flash_attention_block(q, k, v, 0, 0)[1]
-for case, q_off in (("full", S), ("diagonal", 0)):
+for case, q_off, k_off in (("full", S, 0), ("diagonal", 0, 0),
+                           ("empty", 0, S)):
     out[f"d128 {case} block fwd"] = median_ms(
-        lambda: fa.flash_attention_block(q, k, v, q_off, 0))
-    o = fa.flash_attention_block(q, k, v, q_off, 0)[0]
+        lambda: fa.flash_attention_block(q, k, v, q_off, k_off))
+    o = fa.flash_attention_block(q, k, v, q_off, k_off)[0]
     dsum = (do.float() * o.float()).sum(-1)
     out[f"d128 {case} block dq"] = median_ms(
         lambda: fa.flash_attention_block_bwd_dq(q, k, v, do, lse, dsum,
-                                                q_off, 0))
+                                                q_off, k_off))
+    out[f"d128 {case} block dkv"] = median_ms(
+        lambda: fa.flash_attention_block_bwd_dkv(q, k, v, do, lse, dsum,
+                                                 q_off, k_off))
 # host time of a call, at a shape whose kernels take the card less time
 # than the host needs to launch them: the wrapper, its argument checks and
 # (wgmma) the tensor maps' encoding, the launch
@@ -121,7 +138,9 @@ dsum = (do.float() * o.float()).sum(-1)
 for name, fn in (
         ("host us fwd [1,1,128,64]", lambda: fa.flash_attention_fwd(q, k, v)),
         ("host us dq [1,1,128,64]",
-         lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, dsum))):
+         lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, dsum)),
+        ("host us dkv [1,1,128,64]",
+         lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, dsum))):
     for _ in range(100):
         fn()
     torch.cuda.synchronize()
@@ -134,11 +153,20 @@ print(json.dumps(out))
 """
 
 
+_BUILD = ("from hetu_tpu_torch.ops.kernels import build\n"
+          "for source in ('flash_attention_fwd.cu', 'flash_attention_bwd.cu'):"
+          "\n    build.build(source)\n")
+
+
+def python(root, script):
+    """The standard output of ``script`` run in a new process in ``root``."""
+    return subprocess.run([sys.executable, "-c", script], cwd=root,
+                          capture_output=True, text=True, check=True,
+                          env=dict(os.environ, PYTHONPATH=root)).stdout
+
+
 def run_one(root):
-    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=root,
-                         capture_output=True, text=True, check=True,
-                         env=dict(os.environ, PYTHONPATH=root))
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    return json.loads(python(root, _CHILD).strip().splitlines()[-1])
 
 
 def main():
@@ -150,6 +178,9 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"card: {smi}", flush=True)
+    for label in ("old", "new"):
+        python(os.path.abspath(getattr(args, label)), _BUILD)
+    run_one(os.path.abspath(args.new))  # warms the card, not kept
     runs = []
     for label in ("old", "new", "new", "old"):
         res = run_one(os.path.abspath(getattr(args, label)))

@@ -1,8 +1,9 @@
 """The route table of the port's flash-attention kernels (CPU).
 
 ``flash_route`` names the CUDA kernel a launch takes, a pure function of
-dtype and shape: "wgmma" (the Hopper forward and dQ kernels: TMA-fed K/V
-stages, wgmma products), "mma" (mma.sync m16n8k16) or "simt" (plain FMA).
+dtype and shape: "wgmma" (the Hopper forward, dQ and dK/dV kernels:
+TMA-fed stages, wgmma products), "mma" (mma.sync m16n8k16) or "simt"
+(plain FMA).
 Pinned here: the route at every main path's shape; that every shape the
 kernels accepted before keeps its kernel or moves from "mma" to "wgmma"
 exactly where the documented condition holds; and that a CPU tensor still
@@ -48,22 +49,23 @@ MAIN_PATHS = [
     # the witness's block shape timed in chip_smoke.py, one block pair
     ("block fwd", "fwd", BF16, 128, 2048, 2048, 1),
     ("block dq", "dq", BF16, 128, 2048, 2048, 1),
+    ("block dkv", "dkv", BF16, 128, 2048, 2048, 1),
 ]
 
 
 @pytest.mark.parametrize("case", MAIN_PATHS, ids=[c[0] for c in MAIN_PATHS])
 def test_main_path_routes(case):
     _, kernel, dtype, d, sq, sk, n = case
-    want = "mma" if kernel == "dkv" else "wgmma"
-    assert fa.flash_route(kernel, dtype, d, sq, sk, n) == want
+    assert fa.flash_route(kernel, dtype, d, sq, sk, n) == "wgmma"
 
 
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_every_accepted_shape_keeps_its_kernel_or_moves_to_wgmma(kernel):
     """Every (dtype, d, S, ring) the wrappers accept: the kernel it took
-    before, or "wgmma" in place of "mma" exactly for the forward and dQ on
-    bf16 heads of d = 64 or 128 with Sq, Sk >= 128 whose ring groups hold
-    whole 128-row q tiles."""
+    before, or "wgmma" in place of "mma" exactly on bf16 heads of d = 64
+    or 128 with Sq, Sk >= 128 whose ring groups hold whole 128-row tiles
+    of the kernel's items: q rows for the forward and dQ, K/V rows for
+    dK/dV (here Sq = Sk, so the two lengths agree)."""
     ds = [8, 16, 32, 40, 48, 64, 72, 96, 120, 128, 136, 256, 264, 512]
     lengths = [128, 192, 200, 256, 384, 512, 1000, 1024, 2048]
     for dtype, d, s, n in itertools.product((BF16, F32), ds, lengths,
@@ -72,8 +74,9 @@ def test_every_accepted_shape_keeps_its_kernel_or_moves_to_wgmma(kernel):
             continue  # refused by the ring's check, before and after
         before = _route_before(dtype, d)
         got = fa.flash_route(kernel, dtype, d, s, s, n)
-        moves = (kernel != "dkv" and dtype == BF16 and d in (64, 128)
-                 and (n == 1 or (s // n) % 128 == 0))
+        group = s // n  # Sq / n for fwd and dq, Sk / n for dkv
+        moves = (dtype == BF16 and d in (64, 128)
+                 and (n == 1 or group % 128 == 0))
         assert got == ("wgmma" if moves else before), (dtype, d, s, n)
 
 
@@ -85,6 +88,38 @@ def test_short_blocks_keep_the_mma_kernel():
     # d = 96 and f32 keep theirs
     assert fa.flash_route("fwd", BF16, 96, 1024, 1024) == "mma"
     assert fa.flash_route("dq", F32, 64, 1024, 1024) == "simt"
+
+
+# (dtype, d, Sq, Sk, ring groups, route) at the edges of the dK/dV gate
+DKV_EDGES = [
+    (BF16, 96, 1024, 1024, 1, "mma"),      # a head the wgmma kernel lacks
+    (F32, 64, 1024, 1024, 1, "simt"),      # f32 stays on plain FMA
+    (BF16, 64, 128, 127, 1, "mma"),        # Sk below one 128-key item
+    (BF16, 64, 127, 128, 1, "mma"),        # Sq below 128
+    (BF16, 64, 256, 256, 4, "mma"),        # 64-key ring groups
+    (BF16, 128, 768, 768, 4, "mma"),       # 192-key groups: 1.5 items
+    (BF16, 64, 256, 512, 2, "wgmma"),      # 256-key groups, 128-row q ones
+    (BF16, 64, 128, 256, 2, "wgmma"),      # 64-row q groups: the gate
+                                           # reads the K/V groups only
+    (BF16, 64, 200, 200, 1, "wgmma"),      # ragged S, masked in-kernel
+    (BF16, 128, 1000, 1000, 1, "wgmma"),
+]
+
+
+@pytest.mark.parametrize("case", DKV_EDGES,
+                         ids=[f"{str(c[0])[6:]}-d{c[1]}-{c[2]}x{c[3]}-n{c[4]}"
+                              for c in DKV_EDGES])
+def test_dkv_gate_edges(case):
+    dtype, d, sq, sk, n, want = case
+    assert fa.flash_route("dkv", dtype, d, sq, sk, n) == want
+
+
+def test_forward_and_dq_gate_reads_the_q_groups():
+    # the forward's and dQ's items are q tiles: 64-row q groups stay on
+    # mma.sync even where the K/V groups hold whole 128-key tiles
+    assert fa.flash_route("fwd", BF16, 64, 128, 256, 2) == "mma"
+    assert fa.flash_route("dq", BF16, 64, 128, 256, 2) == "mma"
+    assert fa.flash_route("dkv", BF16, 64, 128, 256, 2) == "wgmma"
 
 
 def _rand(*shape, dtype=F32, seed=0):
