@@ -22,9 +22,13 @@ Phases, each fatal on failure (exit 1, no result lines):
    dropout), dQ, dK/dV
    and the CE forward and backward at the main paths' shapes (the wgmma
    route for bf16 heads of 64 and 128) and at ragged, causal,
-   fully-masked, d = 96 (the mma.sync route), wide-head and f32 ones; ``pack_write`` at the W&D shapes (uniform, Zipf-skewed, negative
-   and tail-line ids, Criteo's table, no ids), bitwise on lines with one
-   contributor and against itself across two runs; the packed lookup's
+   fully-masked, d = 96 (the mma.sync route), wide-head and f32 ones;
+   ``pack_write`` at the W&D shapes (uniform, Zipf-skewed at M = 3328 and
+   65,536, negative, out-of-range and tail-line ids, Criteo's table, no
+   ids), bitwise against ``pack_write_ordered`` (its summation tree) on
+   the card and on the CPU and against itself across two runs and on
+   reused scratch, and within the reordering bound of the card's
+   ``index_add_`` (bitwise on lines with one contributor); the packed lookup's
    forward on the card against the CPU, with a NaN and an Inf row and
    negative ids; ``row_gather`` bitwise at the MoE dispatch and combine
    shapes of bench_moe and of the Mixtral layer, f32 and bf16, with
@@ -61,6 +65,11 @@ Phases, each fatal on failure (exit 1, no result lines):
       step, every loss finite, then a ``predict`` run that changes no
       param.  Then one step each of DeepFM, DCN and DLRM on the packed
       table at 337,000 rows: a finite loss and 1 ``pack_write`` launch.
+      Then a checkpoint round trip: two W&D steps, ``Executor.save`` to a
+      temporary file, a fresh executor over a rebuilt graph ``load``s it;
+      Adam's step and moments and the CUDA generator state must come back
+      equal, and the next step's loss must agree with the saved
+      executor's.
    d. bench_moe's training step (BASELINE config 5): ``MoELayer(512, 2048,
       num_experts=8, k=2, capacity_factor=1.25)``, gelu experts, loss
       ``mse_loss_op(moe(x), y) + 0.01 * moe.aux_loss()`` under
@@ -88,7 +97,11 @@ Phases, each fatal on failure (exit 1, no result lines):
    Each path's step is broken down by kernel class under torch.profiler.
    Then each kernel is timed at the paths' shapes beside its bound, its
    plain version and one PyTorch library call (a yardstick only; the port
-   never calls it), and one f32 training step of BERT (batch 2, 2 layers,
+   never calls it): the CE forward also under each launch of its sweep
+   (rows a program, chunk width, warps, stages); ``pack_write`` also under
+   Zipf ids at M = 3328 and 65,536 against ``index_add_`` in turns;
+   ``row_gather``'s step also against ``index_select`` in alternating
+   turns.  Then one f32 training step of BERT (batch 2, 2 layers,
    full widths, dropout off), one of W&D (337,000 rows), one of a small
    MoE layer (H=128, F=256, 4 experts, 64 tokens) and one of a small
    Llama under cp=4 (2 layers, hidden 256, 4 heads, 2 KV heads, S=1024)
@@ -112,8 +125,10 @@ import argparse
 import concurrent.futures
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -770,8 +785,9 @@ def ce_checks(rng, ce):
 
 def ctr_ids(rng, kind, m, n):
     """m ids in [0, n) of one kind: uniform, Zipf-skewed (s = 1.05, a few
-    ids take most of the draws), 30% negative (padding), or half of them
-    on the last id."""
+    ids take most of the draws; every draw past the table lands on its
+    last id), 30% negative (padding), half of them on the last id, or with
+    every fifth id past the table (``out_of_range``)."""
     ids = rng.integers(0, n, m)
     if kind == "zipf":
         ids = np.minimum(rng.zipf(1.05, m) - 1, n - 1)
@@ -779,17 +795,24 @@ def ctr_ids(rng, kind, m, n):
         ids[rng.random(m) < 0.3] = -1
     elif kind == "tail":
         ids[rng.random(m) < 0.5] = n - 1
+    elif kind == "out_of_range":
+        ids[::5] = n
+        ids[1::10] = n + 3
     return ids.astype(np.int32)
 
 
 def pack_write_checks(rng, sd):
-    """Phase 2e: the pack_write kernel against ``pack_write_plain`` on the
-    card (scatter-add with atomics) and on the CPU (sequential); returns
-    the max |error| at the main path's shape."""
+    """Phase 2e: the pack_write kernel bitwise against
+    ``pack_write_ordered`` (its summation tree in plain PyTorch) on the
+    card and on the CPU, and within the reordering bound of
+    ``pack_write_plain`` on the card (a scatter-add with atomics); returns
+    the max |error| against ``pack_write_ordered`` at the main path's
+    shape."""
     p337 = sd.packed_rows(WDL_ROWS, 16)
     cases = (("uniform (main path)", "uniform", 3328, p337),
              ("zipf", "zipf", 3328, p337), ("zipf", "zipf", 65536, p337),
              ("30% negative", "negative", 3328, p337),
+             ("out of range", "out_of_range", 3328, p337),
              # 337,001 rows: the last line holds one row
              ("tail line", "tail", 3328, sd.packed_rows(WDL_ROWS + 1, 16)),
              ("criteo table", "uniform", 3328,
@@ -803,37 +826,55 @@ def pack_write_checks(rng, sd):
         got = sd.pack_write(ids, lines, p_rows)
         again = sd.pack_write(ids, lines, p_rows)
         plain = sd.pack_write_plain(ids, lines, p_rows)
+        ordered = sd.pack_write_ordered(ids, lines, p_rows)
         abs_sum = sd.pack_write_plain(ids, lines.abs(), p_rows)
         torch.cuda.synchronize()
         name = f"pack_write {label} M={m} p_rows={p_rows}"
+        ok = (ids_np >= 0) & (ids_np < p_rows)
         counts = torch.from_numpy(np.bincount(
-            ids_np[ids_np >= 0], minlength=p_rows)[:p_rows]).cuda()
+            ids_np[ok], minlength=p_rows)).cuda()
         single, merged = counts == 1, counts > 1
         # both sides add the same k terms, each in its own order: two
         # recursive sums differ by at most 2 k 2^-24 sum|term|
         diff = (got - plain).abs()
         tol = 2.0 * counts[:, None].float() * 2.0 ** -24 * abs_sum
-        err = diff.max().item() if m else 0.0
+        err = (got - ordered).abs().max().item() if m else 0.0
         log(f"check {name}: {int(single.sum())} single and "
             f"{int(merged.sum())} merged lines (largest run "
-            f"{int(counts.max())}), max_abs_err={err:.3e} vs the card's "
-            "index_add_, tol 0 on single lines and 2*k*2^-24*sum|term| on "
-            "merged ones (atomics add in another order)")
+            f"{int(counts.max())}), max_abs_err={err:.3e} vs "
+            f"pack_write_ordered (tol 0), "
+            f"{(diff.max().item() if m else 0.0):.3e} vs the card's "
+            "index_add_ (tol 0 on single lines and 2*k*2^-24*sum|term| on "
+            "merged ones: atomics add in another order)")
         require(f"{name}: two runs bitwise equal", torch.equal(got, again))
+        require(f"{name}: bitwise equal to pack_write_ordered on the card",
+                torch.equal(got, ordered))
         require(f"{name}: single lines bitwise equal to plain",
                 torch.equal(got[single], plain[single]))
         require(f"{name}: merged lines within tolerance",
                 bool((diff <= tol).all()))
         require(f"{name}: lines with no id stay zero",
                 bool((got[counts == 0] == 0).all()))
-        cpu = sd.pack_write_plain(ids.cpu(), lines.cpu(), p_rows)
+        cpu = sd.pack_write_ordered(ids.cpu(), lines.cpu(), p_rows)
         n_diff = int((got.cpu() != cpu).any(dim=1).sum())
-        require(f"{name}: bitwise equal to the CPU's sequential index_add_ "
-                f"(the stable sort keeps each run in input order; "
-                f"{n_diff} lines differ)", n_diff == 0)
+        require(f"{name}: bitwise equal to pack_write_ordered on the CPU "
+                f"({n_diff} lines differ)", n_diff == 0)
+        if m:
+            ids_sorted, order = torch.sort(ids, stable=True)
+            out, pieces, counters = sd.kernel_buffers(m, p_rows, "cuda")
+            sd.pack_write_kernel(ids_sorted, order, lines, out, pieces,
+                                 counters)
+            sd.pack_write_kernel(ids_sorted, order, lines, out.zero_(),
+                                 pieces, counters)
+            torch.cuda.synchronize()
+            require(f"{name}: the kernel leaves its {counters.numel()} "
+                    "counters zero, so a second launch on the same scratch "
+                    "gives the same bits",
+                    not bool(counters.any()) and torch.equal(out, got))
+            del out, pieces, counters
         if main_err is None:
             main_err = err
-        del got, again, plain, abs_sum, diff, tol, cpu
+        del got, again, plain, ordered, abs_sum, diff, tol, cpu
     return main_err
 
 
@@ -1205,6 +1246,7 @@ def kernel_times(rng, fa, ce, B, S):
         # max, subtract, exp, add per element (f32 vector)
         bound=bound(logits.numel() * 2 + N * 4 + 2 * N * 4, 4 * N * V,
                     torch.float32))
+    ce_sweep(ce, logits, labels, out["softmax_ce_fwd"]["bound"][0], t_ce)
     _, lse = ce.softmax_ce_fwd(logits, labels)
     t_ceb = time_ms(lambda: ce.softmax_ce_bwd(logits, labels, lse, g), 20)
     t_ceb_plain = time_ms(lambda: ce.softmax_ce_bwd_plain(
@@ -1237,6 +1279,39 @@ def kernel_times(rng, fa, ce, B, S):
             f"{r['plain_ms']:.4f} ms, {library[name]} {r['library_ms']:.4f} "
             "ms")
     return out
+
+
+def ce_sweep(ce, logits, labels, bound_ms, t_fixed):
+    """The CE forward's launch parameters at the BERT MLM bucket: each
+    (rows a program, chunk width, warps, pipeline stages) whose per-lane
+    state fits 64 elements a thread, timed back to back with CUDA events
+    and checked against the fixed launch's loss; logs each beside its
+    share of the bound, and the fastest.  The module fixes its launch
+    (``softmax_ce._FWD``) from this sweep."""
+    want, _ = ce.softmax_ce_fwd(logits, labels)
+    best = None
+    for rows in (1, 2):
+        for block_v in (2048, 4096, 8192):
+            for warps in (4, 8, 16):
+                if rows * block_v > 64 * 32 * warps or block_v < 32 * warps:
+                    continue
+                for stages in (1, 3):
+                    cfg = dict(rows=rows, block_v=block_v, num_warps=warps,
+                               num_stages=stages)
+                    loss, _ = ce.launch_fwd(logits, labels, -1, **cfg)
+                    t = time_ms(lambda: ce.launch_fwd(logits, labels, -1,
+                                                      **cfg), 20)
+                    err = (loss - want).abs().max().item()
+                    log(f"ce sweep {cfg}: {t:.4f} ms, {bound_ms / t:.1%} of "
+                        f"its bound, max |loss - fixed launch's| {err:.2e}")
+                    require(f"ce sweep {cfg}: loss within 2e-4 of the fixed "
+                            "launch's (f32 sums in another order)",
+                            err <= 2e-4)
+                    if best is None or t < best[0]:
+                        best = (t, cfg)
+    log(f"ce sweep: fastest {best[1]} {best[0]:.4f} ms; the module's launch "
+        f"{ce._FWD} {t_fixed:.4f} ms, {bound_ms / t_fixed:.1%} of its bound "
+        f"{bound_ms:.4f} ms")
 
 
 def wgmma_times(fa):
@@ -1421,14 +1496,68 @@ def ctr_paths(ht, models, fns, rng, steps, seed):
     return out
 
 
+def checkpoint_roundtrip(ht, models, rng, seed):
+    """W&D (337,000 rows) on the card: two steps, ``save`` to a temporary
+    file, a fresh executor over a rebuilt graph (its optimizer named anew,
+    its params from another seed) ``load``s it.  Its Adam step and moments
+    and its CUDA generator state must equal the saved executor's, and one
+    more step of each on the same batch gives the same loss (the same
+    kernels on the same inputs on one card: rtol 1e-6, bitwise logged)."""
+    ex, feed, step = ctr_executor(ht, models, models.WDL, rng, WDL_ROWS,
+                                  seed)
+    for _ in range(2):
+        step()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "wdl.ckpt")
+        ex.save(path)
+        size = os.path.getsize(path)
+        fresh, _, _ = ctr_executor(ht, models, models.WDL, rng, WDL_ROWS,
+                                   seed + 7)
+        fresh.load(path)
+    pairs = list(zip(ex.opt_state.values(), fresh.opt_state.values()))
+    same_opt = len(pairs) == 1 and all(
+        torch.equal(a["step"], b["step"])
+        and all(torch.equal(a["slots"][v][k], b["slots"][v][k])
+                for v in a["slots"] for k in a["slots"][v])
+        for a, b in pairs)
+    require(f"checkpoint round trip on the card ({size / 1e6:.1f} MB file): "
+            f"Adam step ({int(pairs[0][1]['step'])}) and moments equal",
+            same_opt)
+    require("checkpoint round trip: the CUDA generator state and the step "
+            "count equal",
+            fresh.generator.device.type == "cuda"
+            and torch.equal(ex.generator.get_state(),
+                            fresh.generator.get_state())
+            and fresh._global_step == ex._global_step)
+    want = step()
+    got = fresh.run("train", feed_dict={p.name: v for p, v in feed.items()})[0]
+    torch.cuda.synchronize()
+    err = abs(float(got) - float(want))
+    same_params = all(torch.equal(ex.params[k], fresh.params[k])
+                      for k in ex.params)
+    require(f"checkpoint round trip: the resumed step's loss {float(got):.6f} "
+            f"is finite and within 1e-6*|loss| of the saved executor's "
+            f"next step ({float(want):.6f}; |diff| {err:.3e}, bitwise "
+            f"{torch.equal(got, want)}, params after the step bitwise "
+            f"{same_params}; the same kernels on the same inputs on one "
+            "card)", math.isfinite(float(got))
+            and err <= 1e-6 * abs(float(want)))
+    ex.close()
+    fresh.close()
+    torch.cuda.empty_cache()
+
+
 def pack_write_times(rng, sd):
-    """pack_write at the main path's M = 3328 for both tables: the kernel
-    alone, the whole function (sort + zero fill + kernel) and its parts,
-    the plain version, and ``index_add_`` alone and after a zero fill.
-    Each is timed on the card's clock (``device_ms``; a launch here costs
-    the host more than the kernel takes the card) and, for the whole
-    calls, also back to back with CUDA events (the rate the host
-    sustains)."""
+    """pack_write at the main path's M = 3328 for both tables, uniform ids:
+    the kernel alone, the whole function (sort + zero fill + kernel) and
+    its parts, the plain versions (``pack_write_ordered``, the kernel's
+    order, and ``pack_write_plain``), and ``index_add_`` alone and after a
+    zero fill.  Each is timed on the card's clock (``device_ms``; a launch
+    here costs the host more than the kernel takes the card) and, for the
+    whole calls, also back to back with CUDA events (the rate the host
+    sustains).  Then the kernel and ``index_add_`` under Zipf ids at the
+    337,000-row table, M = 3328 and 65,536, in turns.  Returns {rows:
+    times} of the uniform case."""
     out = {}
     m = CTR_BATCH * 26
     for rows in (WDL_ROWS, CRITEO_ROWS):
@@ -1436,21 +1565,24 @@ def pack_write_times(rng, sd):
         ids = torch.from_numpy(ctr_ids(rng, "uniform", m, p_rows)).cuda()
         lines = torch.randn(m, 128, device="cuda")
         ids_sorted, order = torch.sort(ids, stable=True)
-        buf = torch.zeros(p_rows, 128, device="cuda")
+        buf, pieces, counters = sd.kernel_buffers(m, p_rows, "cuda")
         ids64 = ids.long()
         unique = int(ids.unique().numel())
         calls = dict(
-            ms=lambda: sd.pack_write_kernel(ids_sorted, order, lines, buf),
+            ms=lambda: sd.pack_write_kernel(ids_sorted, order, lines, buf,
+                                            pieces, counters),
             fn_ms=lambda: sd.pack_write(ids, lines, p_rows),
             sort_ms=lambda: torch.sort(ids, stable=True),
             zeros_ms=lambda: torch.zeros(p_rows, 128, device="cuda"),
-            plain_ms=lambda: sd.pack_write_plain(ids, lines, p_rows),
+            plain_ms=lambda: sd.pack_write_ordered(ids, lines, p_rows),
+            scatter_ms=lambda: sd.pack_write_plain(ids, lines, p_rows),
             library_ms=lambda: buf.index_add_(0, ids64, lines),
             library_fn_ms=lambda: torch.zeros(
                 p_rows, 128, device="cuda").index_add_(0, ids64, lines))
-        t = {key: device_ms(fn) for key, fn in calls.items()}
+        t = {key: device_ms(fn, 20 if key == "plain_ms" else 100)
+             for key, fn in calls.items()}
         events = {key: time_ms(calls[key], 50)
-                  for key in ("ms", "fn_ms", "plain_ms", "library_ms")}
+                  for key in ("ms", "fn_ms", "scatter_ms", "library_ms")}
         t.update(
             # read each id and line once, write each unique line once;
             # one f32 add per lane of each line
@@ -1463,31 +1595,48 @@ def pack_write_times(rng, sd):
             f"{t['bound'][0]:.4f} ms ({t['bound'][1]}); whole function "
             f"{t['fn_ms']:.4f} ms (sort {t['sort_ms']:.4f}, zero fill "
             f"{t['zeros_ms']:.4f}), bound {t['fn_bound'][0]:.4f} ms; plain "
-            f"{t['plain_ms']:.4f} ms; index_add_ {t['library_ms']:.4f} ms, "
-            f"zero fill + index_add_ {t['library_fn_ms']:.4f} ms")
+            f"(pack_write_ordered) {t['plain_ms']:.4f} ms, scatter-add "
+            f"(pack_write_plain) {t['scatter_ms']:.4f} ms; index_add_ "
+            f"{t['library_ms']:.4f} ms, zero fill + index_add_ "
+            f"{t['library_fn_ms']:.4f} ms")
         log(f"kernel pack_write M={m} p_rows={p_rows}, back-to-back calls "
             f"(CUDA events): kernel {events['ms']:.4f} ms, whole function "
-            f"{events['fn_ms']:.4f} ms, plain {events['plain_ms']:.4f} ms, "
-            f"index_add_ {events['library_ms']:.4f} ms")
+            f"{events['fn_ms']:.4f} ms, scatter-add "
+            f"{events['scatter_ms']:.4f} ms, index_add_ "
+            f"{events['library_ms']:.4f} ms")
         require(f"pack_write timings at p_rows={p_rows} saw device time",
                 min(t[k] for k in calls) > 0)
         out[rows] = t
-        del buf
-    # skew: one warp sums each run, so a hot id's run is the kernel's tail
+        del buf, pieces, counters
+    # skew: a hot id's run spans many leaves of the summation tree
     p_rows = sd.packed_rows(WDL_ROWS, 16)
     for m in (3328, 65536):
-        ids = torch.from_numpy(ctr_ids(rng, "zipf", m, p_rows)).cuda()
+        ids_np = ctr_ids(rng, "zipf", m, p_rows)
+        ids = torch.from_numpy(ids_np).cuda()
         lines = torch.randn(m, 128, device="cuda")
         ids_sorted, order = torch.sort(ids, stable=True)
-        buf = torch.zeros(p_rows, 128, device="cuda")
+        buf, pieces, counters = sd.kernel_buffers(m, p_rows, "cuda")
         ids64 = ids.long()
-        run = int(torch.bincount(ids).max())
-        t_k = device_ms(lambda: sd.pack_write_kernel(ids_sorted, order, lines,
-                                                     buf))
-        t_lib = device_ms(lambda: buf.index_add_(0, ids64, lines))
-        log(f"kernel pack_write zipf s=1.05 M={m} p_rows={p_rows} (largest "
-            f"run {run}), device time: kernel {t_k:.4f} ms, index_add_ "
-            f"{t_lib:.4f} ms")
+        counts = np.bincount(ids_np, minlength=p_rows)
+        unique = int((counts > 0).sum())
+        kern = lambda: sd.pack_write_kernel(  # noqa: E731
+            ids_sorted, order, lines, buf, pieces, counters)
+        lib = lambda: buf.index_add_(0, ids64, lines)  # noqa: E731
+        turns = {"kernel": [], "index_add_": []}
+        for key in ("kernel", "index_add_", "index_add_", "kernel"):
+            turns[key].append(device_ms(kern if key == "kernel" else lib))
+        b = bound(m * (4 + 512) + unique * 512, m * 128, torch.float32)
+        t_k, t_lib = min(turns["kernel"]), min(turns["index_add_"])
+        log(f"kernel pack_write zipf s=1.05 M={m} p_rows={p_rows} ({unique} "
+            f"unique lines, largest run {int(counts.max())}), device time in "
+            f"turns kernel/index_add_/index_add_/kernel: kernel "
+            f"{turns['kernel'][0]:.4f}, {turns['kernel'][1]:.4f} ms, "
+            f"index_add_ {turns['index_add_'][0]:.4f}, "
+            f"{turns['index_add_'][1]:.4f} ms; bound {b[0]:.4f} ms "
+            f"({b[1]}); kernel/index_add_ {t_k / t_lib:.3f}")
+        require(f"pack_write zipf M={m} timings saw device time",
+                min(turns["kernel"] + turns["index_add_"]) > 0)
+        del buf, pieces, counters
     torch.cuda.empty_cache()
     return out
 
@@ -1644,6 +1793,7 @@ def row_gather_times(rng, md):
     T, C, disp, combs = moe_routing(rng, MOE)
     H, E = MOE["H"], MOE["E"]
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0)
+    gathers = []
     for name, n, idx in (("dispatch", T, disp), ("combine 0", E * C,
                                                  combs[0]),
                          ("combine 1", E * C, combs[1])):
@@ -1678,11 +1828,32 @@ def row_gather_times(rng, md):
         for key in ("ms", "plain_ms", "library_ms"):
             tot[key] += t[key]
         tot["bytes"] += n_bytes
-        del src
+        gathers.append((src, idx, clamped))
     tot["bound"] = bound(tot["bytes"], 0, torch.float32)
     log(f"kernel row_gather, one bench_moe step's 3 launches, L2 cold: "
         f"kernel {tot['ms']:.4f} ms, bound {tot['bound'][0]:.4f} ms, plain "
         f"{tot['plain_ms']:.4f} ms, index_select {tot['library_ms']:.4f} ms")
+    # the step's three launches against index_select's, in alternating
+    # turns (K L L K K L L K), each turn L2 cold and summed over the three
+    turns = {"kernel": [], "index_select": []}
+    for key in ("kernel", "index_select", "index_select", "kernel") * 2:
+        turns[key].append(sum(
+            device_ms((lambda s=src, i=idx: md.row_gather_kernel(s, i))
+                      if key == "kernel" else
+                      (lambda s=src, c=clamped: s.index_select(0, c)),
+                      50, cold=True)
+            for src, idx, clamped in gathers))
+    k_lo, k_hi = min(turns["kernel"]), max(turns["kernel"])
+    l_lo, l_hi = min(turns["index_select"]), max(turns["index_select"])
+    verdict = ("loses by more than the spread" if k_lo > l_hi else
+               "wins by more than the spread" if k_hi < l_lo else
+               "inside the spread")
+    log(f"kernel row_gather, one bench_moe step's 3 launches, L2 cold, "
+        f"alternating turns: kernel {', '.join(f'{t:.4f}' for t in turns['kernel'])}"
+        f" ms (spread {k_lo:.4f}-{k_hi:.4f}); index_select "
+        f"{', '.join(f'{t:.4f}' for t in turns['index_select'])} ms (spread "
+        f"{l_lo:.4f}-{l_hi:.4f}): the kernel {verdict}")
+    del gathers
     return tot
 
 
@@ -2302,6 +2473,7 @@ def main():
     torch.cuda.empty_cache()
 
     ctr = ctr_paths(ht, models, fns, rng, steps, args.seed)
+    checkpoint_roundtrip(ht, models, rng, args.seed)
     if failures:
         log(f"FAILED: {failures}")
         return 1

@@ -21,9 +21,14 @@ device gives the ops a ``cp`` axis to lower long-context attention onto
 (ring or, with ``cp_impl="ulysses"``, Ulysses attention); the params stay
 whole on that device, as the JAX executor replicates them over the mesh.
 
-Guards, numerics, save/resume with RNG state, data parallelism and the
-parameter server are later slices (ROADMAP.md).  Those arguments raise
-``NotImplementedError`` here rather than being ignored.
+``state_dict`` / ``load_state_dict`` and ``save`` / ``load`` (through
+``graph/checkpoint.py``) carry the params, every optimizer's step and
+slots, the step count and the generator's state, so that a resumed run
+continues bitwise where the saved one stopped.
+
+Guards, numerics, data parallelism and the parameter server are later
+slices (ROADMAP.md).  Those arguments raise ``NotImplementedError`` here
+rather than being ignored.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ import zlib
 import numpy as np
 import torch
 
+from .checkpoint import (CheckpointError, atomic_pickle, read_checkpoint,
+                         validate_state)
 from .node import Op, PlaceholderOp, VariableOp, find_topo_sort
 from .trace import TraceContext, evaluate
 
@@ -234,12 +241,15 @@ class Executor:
             gen = torch.Generator().manual_seed(init_seed(self.seed, v.name))
             value = v.initializer(gen, v.shape, torch_dtype(v.dtype))
             self.params[v.name] = value.to(self.device)
-        # {optimizer_op_name: state}, each optimizer initialised once
+        # {optimizer_op_name: state}, each optimizer initialised once;
+        # _opt_ops keeps the ops in graph (construction) order
         self.opt_state = {}
+        self._opt_ops = {}
         for n in self.all_topo:
             if hasattr(n, "init_state"):
                 self.opt_state[n.name] = n.init_state(self.params,
                                                       self.device)
+                self._opt_ops[n.name] = n
         self.subexecutor = {name: SubExecutor(name, nodes, self)
                             for name, nodes in self.eval_node_dict.items()}
 
@@ -278,13 +288,52 @@ class Executor:
                                       expect=expect)
 
     def state_dict(self):
+        """The executor's state as numpy, with the JAX package's keys
+        (``hetu_tpu/graph/executor.py`` ``state_dict``): ``params`` (the
+        f32 masters under a ``compute_dtype``), ``opt_state`` (each
+        optimizer op's ``step`` and ``slots``), ``opt_meta`` (each
+        optimizer op's class and construction order, by which
+        ``load_state_dict`` pairs the ops), the ``format`` tag and
+        ``global_step``.  In place of JAX's PRNG key (``base_key``) it
+        holds ``generator_state``, the bytes of the executor's
+        ``torch.Generator`` (uint8), and ``generator_device``, the device
+        type of that generator ("cpu" or "cuda")."""
         self.check_monitors()
+        opt = {name: {"step": _to_numpy(st["step"]),
+                      "slots": {var: {k: _to_numpy(t)
+                                      for k, t in slots.items()}
+                                for var, slots in st["slots"].items()}}
+               for name, st in self.opt_state.items()}
+        meta = {name: {"class": type(op.optimizer).__name__, "order": i}
+                for i, (name, op) in enumerate(self._opt_ops.items())}
         return {"params": {k: _to_numpy(v) for k, v in self.params.items()},
-                "global_step": self._global_step}
+                "opt_state": opt, "opt_meta": meta,
+                "format": {"conv_layout": "HWIO", "version": 1},
+                "global_step": self._global_step,
+                "generator_state": self.generator.get_state().numpy().copy(),
+                "generator_device": self.device.type}
+
+    def save(self, path):
+        """Write ``state_dict()`` to ``path`` atomically: a kill mid-save
+        leaves the previous file intact."""
+        atomic_pickle(self.state_dict(), path)
+
+    def load(self, path):
+        """Restore from a file written by ``save``; a torn or foreign file
+        raises ``CheckpointError``."""
+        self.load_state_dict(read_checkpoint(path))
 
     def load_state_dict(self, state):
-        """Restore params (and the step count) saved by ``state_dict``.
-        A partial restore warns; a shape mismatch raises."""
+        """Restore what ``state_dict`` saved, on this executor's device.
+
+        A partial params restore warns; a param or slot of another shape
+        raises ``ValueError``; a payload without the required keys, or
+        whose optimizer states do not pair with this graph's optimizer ops
+        by construction order and class (``opt_meta``) and variable sets,
+        raises ``CheckpointError``.  Nothing changes unless every check
+        passes.  A generator state saved on another device type cannot
+        continue this executor's stream: it warns and keeps its own."""
+        validate_state(state, source="state_dict payload")
         var_by_name = {v.name: v for v in self.variables}
         extra = sorted(set(state["params"]) - set(var_by_name))
         absent = sorted(set(var_by_name) - set(state["params"]))
@@ -293,17 +342,90 @@ class Executor:
                 f"partial restore: {len(absent)} graph param(s) not in the "
                 f"state (keep their init: {absent[:4]}...), {len(extra)} "
                 f"state param(s) unused ({extra[:4]}...)", stacklevel=2)
+        params = {}
         for name, value in state["params"].items():
             v = var_by_name.get(name)
-            if v is None:
-                continue
-            value = torch.as_tensor(np.asarray(value))
-            if tuple(value.shape) != tuple(v.shape):
-                raise ValueError(
-                    f"state param {name!r} has shape {tuple(value.shape)} "
-                    f"but the graph expects {tuple(v.shape)}")
-            self.params[name] = value.to(self.device, torch_dtype(v.dtype))
-        self._global_step = int(state.get("global_step", self._global_step))
+            if v is not None:
+                params[name] = self._restore(
+                    f"state param {name!r}", value, v.shape,
+                    torch_dtype(v.dtype))
+        opt_state = {}
+        for cur_name, sv in self._pair_opt_state(state).items():
+            cur = self.opt_state[cur_name]
+            if set(sv["slots"]) != set(cur["slots"]):
+                raise CheckpointError(
+                    f"checkpoint optimizer state for {cur_name!r} covers "
+                    "other variables than this graph's")
+            slots = {}
+            for var, cur_slots in cur["slots"].items():
+                if set(sv["slots"][var]) != set(cur_slots):
+                    raise CheckpointError(
+                        f"checkpoint slots of {var!r} are "
+                        f"{sorted(sv['slots'][var])}, this graph's "
+                        f"{sorted(cur_slots)}")
+                slots[var] = {
+                    k: self._restore(f"slot {k!r} of {var!r}",
+                                     sv["slots"][var][k], t.shape, t.dtype)
+                    for k, t in cur_slots.items()}
+            opt_state[cur_name] = {
+                "step": self._restore(f"step of {cur_name!r}", sv["step"],
+                                      cur["step"].shape, cur["step"].dtype),
+                "slots": slots}
+        gen_state = torch.from_numpy(
+            np.array(state["generator_state"], dtype=np.uint8))
+        same_kind = state.get("generator_device",
+                              self.device.type) == self.device.type
+        if not same_kind:
+            warnings.warn(
+                f"the checkpoint's generator state is a "
+                f"{state['generator_device']} generator's; this executor's "
+                f"{self.device.type} generator keeps its own state",
+                stacklevel=2)
+        self.params.update(params)
+        self.opt_state.update(opt_state)
+        self._global_step = int(state["global_step"])
+        if same_kind:
+            self.generator.set_state(gen_state)
+
+    def _restore(self, what, value, shape, dtype):
+        value = torch.as_tensor(np.asarray(value))
+        if tuple(value.shape) != tuple(shape):
+            raise ValueError(f"{what} has shape {tuple(value.shape)} but "
+                             f"the graph expects {tuple(shape)}")
+        return value.to(self.device, dtype)
+
+    def _pair_opt_state(self, state):
+        """{this graph's optimizer op name: saved state}, paired by
+        construction order and class (``opt_meta``), as the JAX package
+        pairs them when the names differ; op names carry a process-wide
+        counter, so a rebuilt graph names its ops anew."""
+        saved, meta = state["opt_state"], state.get("opt_meta")
+        if meta is None:
+            if set(saved) != set(self._opt_ops):
+                raise CheckpointError(
+                    "checkpoint has no opt_meta and its optimizer states "
+                    f"{sorted(saved)} are not this graph's "
+                    f"{sorted(self._opt_ops)}")
+            return dict(saved)
+        if set(meta) != set(saved):
+            raise CheckpointError(
+                f"opt_meta names {sorted(meta)} but the checkpoint holds "
+                f"optimizer states {sorted(saved)}")
+        if len(saved) != len(self._opt_ops):
+            raise CheckpointError(
+                f"checkpoint holds {len(saved)} optimizer state(s), this "
+                f"graph has {len(self._opt_ops)} optimizer op(s)")
+        order = sorted(saved, key=lambda n: meta[n]["order"])
+        paired = {}
+        for (cur_name, op), sv_name in zip(self._opt_ops.items(), order):
+            cls = type(op.optimizer).__name__
+            if meta[sv_name]["class"] != cls:
+                raise CheckpointError(
+                    f"checkpoint optimizer {sv_name!r} is a "
+                    f"{meta[sv_name]['class']} but this graph's "
+                    f"{cur_name!r} is a {cls}")
+            paired[cur_name] = saved[sv_name]
+        return paired
 
     def close(self):
         """Release this executor's device memory (its params and optimizer

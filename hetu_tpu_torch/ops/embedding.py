@@ -24,8 +24,10 @@ embedding_lookup_op = simple_op(_embedding_lookup, "embedding_lookup")
 class _PackedLookupOp(Op):
     """Lookup from a PACKED [p_rows, 128] embedding table; its backward
     writes the dense packed gradient with the ``pack_write`` kernel on the
-    card (the JAX op engages its Pallas kernel off-mesh on TPU; the port
-    has no mesh yet)."""
+    card, also inside a meshed executor.  The JAX op engages its Pallas
+    kernel only off-mesh, because ``pallas_call`` does not partition under
+    GSPMD; the port's mesh places every position on the executor's one
+    device, so the kernel runs there too, with the same values."""
 
     def _compute(self, input_vals, ctx):
         from .kernels.sparse_densify import packed_lookup

@@ -8,12 +8,19 @@ line 109): per-row loss = lse - x[label] with an online max / sum-exp /
 target-logit over the vocab, the ragged vocab tail masked, loss 0 on
 ignored rows (which still get their lse), and an out-of-range label
 picking nothing (loss = lse).  What bounds it on the H100: one read of the
-[N, V] logits (N*V*2 bytes in bf16, ~500 MB for the BERT-base MLM bucket)
-at 3.35 TB/s; the arithmetic (one exp, a max and two adds per element) is
-far below the card's rate.  The TPU kernel carries (m, l, x_target)
-across its sequential vocab grid axis in VMEM scratch; GPU blocks run in
-no order, so here the vocab loop runs inside one program per row, which
-reads its row exactly once in 4096-wide chunks.
+[N, V] logits (N*V*2 bytes in bf16, 500 MB for the BERT-base MLM bucket,
+0.149 ms at 3.35 TB/s).  The TPU kernel carries (m, l, x_target) across
+its sequential vocab grid axis in VMEM scratch; GPU blocks run in no
+order, so here the vocab loop runs inside one program per ``_FWD["rows"]``
+rows, which reads each row once in ``_FWD["block_v"]``-wide chunks.  So
+that the loop is loads and lane-local arithmetic only, each lane keeps its
+own running max and sum of exp2 across the chunks (log2(e) folded into
+the logits), updated with one exp2 an element: with d = y - m,
+s <- s + 2^-|d| if d <= 0, else s 2^-|d| + 1.  The lanes are reduced
+across the program once, at the row's end, and the target logit is one
+scalar load of x[row, label], guarded to 0 <= label < V.  The chunk
+width, warps, rows per program and pipeline stages were chosen from the
+sweep that ``chip_smoke.py`` times (``kernel_times``).
 
 Backward: replaces ``_bwd_kernel`` reached through ``_bwd`` (line 140):
 dx = (exp(x - lse) - onehot(label)) * g per row, the ragged tail masked,
@@ -34,9 +41,11 @@ import math
 
 import torch
 
-_BLOCK_N = 1       # rows per program
-_BLOCK_V = 4096    # vocab lanes per chunk
-_NUM_WARPS = 8
+# the forward's launch: rows per program, vocab lanes per chunk, warps and
+# software-pipeline stages of the vocab loop (from chip_smoke.py's sweep)
+_FWD = dict(rows=2, block_v=2048, num_warps=4, num_stages=3)
+_BLOCK_V = 4096    # the backward's vocab lanes per program
+_NUM_WARPS = 8     # the backward's warps
 _kernels = {}
 
 
@@ -50,26 +59,31 @@ def _build_kernels():
 
     @triton.jit
     def _ce_fwd_kernel(x_ptr, lab_ptr, loss_ptr, lse_ptr, N, V, stride_row,
-                       ignored, BLOCK_N: tl.constexpr, BLOCK_V: tl.constexpr):
+                       ignored, BLOCK_N: tl.constexpr, BLOCK_V: tl.constexpr,
+                       NUM_STAGES: tl.constexpr):
+        LOG2E: tl.constexpr = 1.4426950408889634
         rows = tl.program_id(0) * BLOCK_N + tl.arange(0, BLOCK_N)
         row_ok = rows < N
-        lab = tl.load(lab_ptr + rows, mask=row_ok, other=ignored)
         row_ptr = x_ptr + rows.to(tl.int64)[:, None] * stride_row
-        m = tl.full([BLOCK_N], -1e30, tl.float32)
-        l = tl.zeros([BLOCK_N], tl.float32)
-        xt = tl.zeros([BLOCK_N], tl.float32)
-        for start in range(0, V, BLOCK_V):
+        # per lane: running max m of y = x log2(e), and s = sum 2^(y - m)
+        m = tl.full([BLOCK_N, BLOCK_V], -1e30, tl.float32)
+        s = tl.zeros([BLOCK_N, BLOCK_V], tl.float32)
+        for start in tl.range(0, V, BLOCK_V, num_stages=NUM_STAGES):
             cols = start + tl.arange(0, BLOCK_V)
             valid = row_ok[:, None] & (cols < V)[None, :]
-            x = tl.load(row_ptr + cols[None, :], mask=valid,
-                        other=-1e30).to(tl.float32)
-            m_new = tl.maximum(m, tl.max(x, axis=1))
-            l = l * tl.exp(m - m_new) + tl.sum(tl.exp(x - m_new[:, None]),
-                                               axis=1)
-            m = m_new
-            hit = valid & (cols[None, :] == lab[:, None])
-            xt += tl.sum(tl.where(hit, x, 0.0), axis=1)
-        lse = m + tl.log(tl.maximum(l, 1e-37))
+            y = tl.load(row_ptr + cols[None, :], mask=valid,
+                        other=float("-inf")).to(tl.float32) * LOG2E
+            d = y - m
+            e = tl.math.exp2(-tl.abs(d))
+            s = tl.where(d > 0, s * e + 1.0, s + e)
+            m = tl.maximum(m, y)
+        row_max = tl.max(m, axis=1)
+        total = tl.sum(s * tl.math.exp2(m - row_max[:, None]), axis=1)
+        lse = (row_max + tl.math.log2(total)) / LOG2E
+        lab = tl.load(lab_ptr + rows, mask=row_ok, other=ignored)
+        hit = row_ok & (lab >= 0) & (lab < V)
+        xt = tl.load(x_ptr + rows.to(tl.int64) * stride_row + lab, mask=hit,
+                     other=0.0).to(tl.float32)
         loss = tl.where(lab == ignored, 0.0, lse - xt)
         tl.store(loss_ptr + rows, loss, mask=row_ok)
         tl.store(lse_ptr + rows, lse, mask=row_ok)
@@ -134,17 +148,27 @@ def softmax_ce_fwd(logits, labels, ignored_index=-1):
     if torch.is_grad_enabled() and logits.requires_grad:
         raise RuntimeError("softmax_ce_fwd has no gradient; call SoftmaxCEFn "
                            "(fused_softmax_ce_sparse) to train")
-    n, v = logits.shape
     if logits.device.type == "cpu":
         return softmax_ce_plain(logits, labels, ignored_index)
+    out = launch_fwd(logits, labels, ignored_index, **_FWD)
+    softmax_ce_fwd.launches += 1
+    return out
+
+
+def launch_fwd(logits, labels, ignored_index, rows, block_v, num_warps,
+               num_stages):
+    """One launch of the forward kernel with the given launch parameters:
+    (loss, lse).  ``softmax_ce_fwd`` launches it with ``_FWD``;
+    ``chip_smoke.py`` times the others of its sweep through it."""
+    n, v = logits.shape
     logits = _check("softmax_ce_fwd", logits)
     labels = labels.to(device=logits.device, dtype=torch.int32).contiguous()
     loss = torch.empty(n, dtype=torch.float32, device=logits.device)
     lse = torch.empty(n, dtype=torch.float32, device=logits.device)
-    _build_kernels()["fwd"][(math.ceil(n / _BLOCK_N),)](
+    _build_kernels()["fwd"][(math.ceil(n / rows),)](
         logits, labels, loss, lse, n, v, logits.stride(0), int(ignored_index),
-        BLOCK_N=_BLOCK_N, BLOCK_V=_BLOCK_V, num_warps=_NUM_WARPS)
-    softmax_ce_fwd.launches += 1
+        BLOCK_N=rows, BLOCK_V=block_v, NUM_STAGES=num_stages,
+        num_warps=num_warps, num_stages=num_stages)
     return loss, lse
 
 

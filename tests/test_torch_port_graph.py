@@ -185,8 +185,12 @@ def test_load_state_dict_roundtrip_and_shape_check():
     assert not torch.equal(ex2.params[w.name], ex.params[w.name])
     ex2.load_state_dict(state)
     assert torch.equal(ex2.params[w.name], ex.params[w.name])
+    # the whole state comes back: step count and generator too
+    assert ex2._global_step == ex._global_step
+    assert torch.equal(ex2.generator.get_state(), ex.generator.get_state())
     with pytest.raises(ValueError, match="shape"):
-        ex2.load_state_dict({"params": {w.name: np.zeros((2, 3))}})
+        ex2.load_state_dict(dict(state, params={w.name: np.zeros((2, 3))}))
+    assert torch.equal(ex2.params[w.name], ex.params[w.name])
 
 
 def _port_sources():

@@ -3,8 +3,9 @@ the JAX package's (hetu_tpu/ops/pallas/sparse_densify.py) on the CPU.
 
 On the CPU the JAX ``pack_write`` runs its jnp composition (its kernel
 gate admits TPU only) and the port runs ``pack_write_plain``, the same
-composition; the CUDA kernel is held to ``pack_write_plain`` on the card
-by ``chip_smoke.py``.
+composition.  ``pack_write_ordered`` is the CUDA kernel's fixed summation
+tree, which the kernel equals bitwise on the card (``chip_smoke.py``);
+here it is held to the JAX composition and to ``pack_write_plain``.
 
 Tolerances: the layout helpers and the lookup forward are exact (a packed
 table is a reshape; both lookups return each row's own values).
@@ -13,8 +14,15 @@ one ``0 + x`` add on both sides and is compared bitwise; a line that merges
 several rows is a sum of f32 terms that the two scatter-adds may take in
 another order, held to rtol 1e-6 and atol 1e-6 (inputs ~N(0, 1), at most
 a few hundred terms a line, so a reordering moves the sum by a few f32
-ulps of its terms' magnitude).
+ulps of its terms' magnitude).  ``pack_write_ordered`` adds in a tree
+order instead, which moves a sum whose terms cancel by more than that
+relative tolerance: its merged lines are held to the bound of any two
+summation orders of k terms, 2 k 2^-24 sum|term| (each order's error is
+at most k 2^-24 sum|term|), and its single lines bitwise.
 """
+
+import os
+import re
 
 import numpy as np
 import jax
@@ -106,9 +114,118 @@ def test_pack_write_plain_matches_jax(kind, m, p_rows):
     assert np.all(got.numpy()[counts == 0] == 0)
 
 
+def _ordered_case(kind, rng):
+    """(pack ids, p_rows) of the ordered version's cases: runs that
+    straddle leaf and node borders, one run over many leaves (Zipf with
+    every draw past the table clipped onto its last line, as chip_smoke.py
+    draws W&D's skewed ids), negative and out-of-range ids."""
+    fan = tsd.FAN
+    if kind == "straddle":
+        # runs of 1, fan - 1, fan, fan + 1, 2 fan + 1 and fan^2 + 3 ids,
+        # laid end to end from an offset, so they cross leaf and node
+        # borders at every phase
+        lengths = [1, fan - 1, fan, fan + 1, 2 * fan + 1, 3, fan * fan + 3,
+                   5, fan + 7]
+        ids = np.concatenate([np.full(n, i) for i, n in enumerate(lengths)])
+        return np.concatenate([np.full(fan // 2 + 1, -1), ids]), len(lengths)
+    if kind == "zipf_long":
+        p_rows = 42125  # W&D's table, 337,000 rows of 16
+        return np.minimum(rng.zipf(1.05, 40000) - 1, p_rows - 1), p_rows
+    if kind == "negative_out_of_range":
+        ids = rng.integers(0, 60, 5000)
+        ids[rng.random(5000) < 0.3] = -1
+        ids[::11] = 60
+        ids[1::13] = 65
+        return ids, 60
+    if kind == "uniform":
+        return rng.integers(0, 42125, 3328), 42125
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["straddle", "zipf_long",
+                                  "negative_out_of_range", "uniform"])
+def test_pack_write_ordered_matches_jax_and_scatter_add(kind):
+    rng = np.random.default_rng(len(kind))
+    ids, p_rows = _ordered_case(kind, rng)
+    ids = ids.astype(np.int32)
+    lines = rng.standard_normal((ids.shape[0], 128)).astype(np.float32)
+    want = np.asarray(jsd.pack_write(jnp.asarray(ids), jnp.asarray(lines),
+                                     p_rows, use_pallas=False))
+    t_ids, t_lines = torch.from_numpy(ids), torch.from_numpy(lines)
+    got = tsd.pack_write_ordered(t_ids, t_lines, p_rows)
+    assert got.shape == (p_rows, 128) and got.dtype == torch.float32
+    counts = np.bincount(ids[(ids >= 0) & (ids < p_rows)],
+                         minlength=p_rows)
+    if kind != "uniform":
+        assert counts.max() > tsd.FAN  # some run spans leaves
+    abs_sum = tsd.pack_write_plain(t_ids, t_lines.abs(), p_rows).numpy()
+    bound = 2.0 * counts[:, None] * 2.0 ** -24 * abs_sum
+    single = counts == 1
+    for other in (want, tsd.pack_write_plain(t_ids, t_lines, p_rows).numpy()):
+        np.testing.assert_array_equal(got.numpy()[single], other[single])
+        assert np.all(np.abs(got.numpy() - other) <= bound)
+    assert np.all(got.numpy()[counts == 0] == 0)
+
+
+def test_pack_write_ordered_sums_in_its_tree_order():
+    """The order itself: a run inside one leaf is summed in sorted
+    (stable: input) order from 0; a run over two leaves is 0 + A + B, A
+    and B its leaves' sums; a run over leaves of two nodes adds the
+    nodes' pieces in turn."""
+    fan = tsd.FAN
+    rng = np.random.default_rng(3)
+
+    def seq(rows):
+        acc = np.zeros(128, np.float32)
+        for r in rows:
+            acc = acc + r
+        return acc
+
+    # id 1 at positions 3..fan+9 (two leaves); id 2 over three nodes
+    n2 = 2 * fan * fan + 5
+    ids = np.concatenate([np.zeros(3), np.ones(fan + 7), np.full(n2, 2)])
+    lines = (rng.standard_normal((ids.shape[0], 128)) * 1e3).astype(
+        np.float32)
+    perm = rng.permutation(ids.shape[0])  # the ids unsorted
+    got = tsd.pack_write_ordered(torch.from_numpy(ids[perm].astype(np.int32)),
+                                 torch.from_numpy(lines[perm]), 3).numpy()
+    # the stable sort keeps equal ids in their input order
+    lines = lines[perm][np.argsort(ids[perm], kind="stable")]
+    np.testing.assert_array_equal(got[0], seq(lines[:3]))
+    a, b = seq(lines[3:fan]), seq(lines[fan:fan + 10])
+    np.testing.assert_array_equal(got[1], seq([a, b]))
+    start = fan + 10
+    leaves = [seq(lines[max(p, start):p + fan])
+              for p in range(start - start % fan, ids.shape[0], fan)]
+    first = fan - start % fan  # leaves of id 2 in the first node
+    node0 = seq(leaves[:fan - 1])  # leaves 1..fan-1 of node 0
+    node1 = seq(leaves[fan - 1:2 * fan - 1])
+    node2 = seq(leaves[2 * fan - 1:])
+    assert first and len(leaves) == 2 * fan + 1
+    np.testing.assert_array_equal(got[2], seq([node0, node1, node2]))
+    assert not np.array_equal(got[2], seq(lines[start:]))
+
+
+def test_tree_slots_match_the_cuda_source():
+    """The tree's fan-out in Python is the CUDA source's (``kFan``), and
+    the scratch holds two slots for each node of every level with more
+    than one."""
+    src = os.path.join(os.path.dirname(tsd.__file__), "..", "..", "csrc",
+                       "pack_write.cu")
+    with open(src) as f:
+        text = f.read()
+    assert int(re.search(r"constexpr int kFan = (\d+);", text).group(1)) \
+        == tsd.FAN
+    assert [tsd.tree_slots(m) for m in (0, 1, 32, 33, 1024, 1025, 65536)] \
+        == [0, 0, 0, 4, 64, 66 + 4, 4096 + 128 + 4]
+
+
 def test_pack_write_empty():
     out = tsd.pack_write(torch.zeros(0, dtype=torch.int32),
                          torch.zeros(0, 128), 7)
+    ordered = tsd.pack_write_ordered(torch.zeros(0, dtype=torch.int32),
+                                     torch.zeros(0, 128), 7)
+    assert ordered.shape == (7, 128) and not ordered.any()
     want = jsd.pack_write(jnp.zeros(0, jnp.int32), jnp.zeros((0, 128)), 7,
                           use_pallas=False)
     assert out.shape == (7, 128) and not out.any()
