@@ -44,7 +44,14 @@ Phases, each fatal on failure (exit 1, no result lines):
 3. Main paths, each driven with the launch counters set to 0 just before
    its timed steps and read just after: the ten kernels' and the flash
    kernels' by route (``flash_attention.route_launches``), so that each
-   path shows its forward, dQ and dK/dV launches on the wgmma kernels:
+   path shows its forward, dQ and dK/dV launches on the wgmma kernels.
+   Every step runs as the executor runs it on the card: the first call of
+   a subgraph eagerly, the second captured in a CUDA graph, the rest as
+   replays, so each path warms up with at least 2 steps and its timed
+   steps are replays, whose launches the executor counts from the
+   capture (once a replay).  First, a step that reads a tensor on the
+   host must raise ``CaptureError`` naming the op when captured, and run
+   under ``disable_capture()``.
    a. BERT-base (vocab 30522, hidden 768, 12 layers, 12 heads, FFN 3072,
       seq 512, MLM bucket 0.25 -> 8192 rows) evaluated through
       ``Executor({"validate": [loss]}, compute_dtype=bfloat16)`` at batch
@@ -79,7 +86,7 @@ Phases, each fatal on failure (exit 1, no result lines):
       backward is a scatter-add), every loss finite, tokens/s; then the
       same 3 steps twice from the same params, bitwise equal.  Then the
       Mixtral-8x7B MoE layer (hidden 4096, FFN 14336, 8 swiglu experts,
-      top-2, capacity 4.0) at B=1 S=2048, f32, Adam: 1 warm-up and 3
+      top-2, capacity 4.0) at B=1 S=2048, f32, Adam: 2 warm-up and 3
       timed steps, 3 ``row_gather`` launches per step.
    e. bench_llama's Llama (vocab 32000, hidden 768, 12 layers, 12 heads,
       4 KV heads, FFN 2048) at B=8 S=1024, bf16 over f32 masters,
@@ -92,8 +99,20 @@ Phases, each fatal on failure (exit 1, no result lines):
       steps without a mesh from the same params (12 flash forward, dQ and
       dK/dV launches a step), ms/step, tokens/s and peak memory of both.
       Then 2 of Mistral-7B's 32 layers at its published widths (hidden
-      4096, 32 heads, 8 KV heads, FFN 14336) at B=1 S=8192 under cp=4: 1
+      4096, 32 heads, 8 KV heads, FFN 14336) at B=1 S=8192 under cp=4: 2
       warm-up and 3 timed steps.
+   f. Each path above (BERT eval and train, W&D at both sizes, bench_moe
+      and the Mixtral layer, Llama cp=4 and mesh-less, the witness), on
+      its executor: 5 steps under ``disable_capture()`` and 5 captured
+      steps from the same state (3 each for the Mixtral layer and the
+      witness) must give bitwise equal losses and checkpoints (params,
+      optimizer steps and slots, generator state, step count);
+      ``run_steps(..., 20)`` must equal 20 ``run()`` calls bitwise (the
+      last loss and the checkpoint); eager and captured ms/step in
+      alternating turns (eager, captured, captured, eager, twice), peak
+      memory (captured: allocated plus the graph pool), and traced
+      windows of each in turns: busy time, idle share, launches.  A ``{"capture":
+      [...]}`` line before the kernels' line sums them up.
    Each path's step is broken down by kernel class under torch.profiler.
    Then each kernel is timed at the paths' shapes beside its bound, its
    plain version and one PyTorch library call (a yardstick only; the port
@@ -112,9 +131,10 @@ Phases, each fatal on failure (exit 1, no result lines):
    scaled_dot_product_attention (the yardstick) and its backward; the
    wgmma forward, dQ and dK/dV at the mesh-less Llama's causal
    [8,12,1024,64].
-4. Result: a {"kernels": [...]} JSON line (the ten kernels of the TPU
-   kernels' entry points and the three wgmma kernels), the nvidia-smi
-   line, and last {"ok": true, "device": {...}}.
+4. Result: the {"capture": [...]} line, a {"kernels": [...]} JSON line
+   (the ten kernels of the TPU kernels' entry points and the three wgmma
+   kernels, launches from the captured steps of the paths), the
+   nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -123,6 +143,8 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import gc
 import json
 import math
 import os
@@ -188,6 +210,16 @@ def check_spread(name, got, want, atol, rtol, spread, why):
     if not ok:
         failures.append(name)
     return diff.max().item()
+
+
+def free_memory(tag):
+    """Collect garbage (executors sit in reference cycles), return the
+    allocator's free cached blocks to the card, and log what stays."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"memory {tag}: allocated {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB, reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB")
 
 
 def require(name, ok):
@@ -1133,7 +1165,10 @@ def run_path(label, step, fns, steps, B, expect, warmup=3, unit="samples"):
 
 def profile_steps(label, step, steps=2, top=12):
     """Where a path's step time goes: device time by kernel under
-    torch.profiler, and the device's idle share of the traced window."""
+    torch.profiler (the kernels of a replayed CUDA graph each show), and
+    the device's idle share of the traced window.  Returns {"wall_ms",
+    "busy_ms", "idle", "launches"} a step (None if the profiler saw no
+    device time); ``top=0`` logs the totals only."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1148,11 +1183,16 @@ def profile_steps(label, step, steps=2, top=12):
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us <= 0:
         log(f"profile {label}: the profiler saw no device time")
-        return
-    log(f"profile {label}: {steps} steps, {wall_us / steps / 1e3:.3f} "
-        f"ms/step wall (traced), device busy {busy_us / steps / 1e3:.3f} "
-        f"ms/step, idle share {max(0.0, 1 - busy_us / wall_us):.3f}, "
-        f"{sum(e.count for e in kernels) // steps} kernel launches/step")
+        return None
+    out = {"wall_ms": wall_us / steps / 1e3, "busy_ms": busy_us / steps / 1e3,
+           "idle": max(0.0, 1 - busy_us / wall_us),
+           "launches": sum(e.count for e in kernels) // steps}
+    log(f"profile {label}: {steps} steps, {out['wall_ms']:.3f} "
+        f"ms/step wall (traced), device busy {out['busy_ms']:.3f} "
+        f"ms/step, idle share {out['idle']:.3f}, "
+        f"{out['launches']} kernel launches/step")
+    if not top:
+        return out
     # kernel classes by name: the seven kernels, the id sort, cuBLAS GEMMs,
     # reductions (layer-norm moments, means, sums), copies and casts, other
     # elementwise
@@ -1182,6 +1222,196 @@ def profile_steps(label, step, steps=2, top=12):
         log(f"  {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
             f"{e.self_device_time_total / busy_us:6.1%} x{e.count // steps:<4d}"
             f" {e.key.replace('void at::native::', '')[:140]}")
+    return out
+
+
+def _np_bits(a):
+    a = np.ascontiguousarray(a)
+    return a.view(f"u{a.itemsize}")
+
+
+def checkpoint_tensors(ex):
+    """The tensors of ``ex``'s checkpoint: params, then each optimizer's
+    step and slots."""
+    out = list(ex.params.values())
+    for st in ex.opt_state.values():
+        out.append(st["step"])
+        out += [t for slots in st["slots"].values() for t in slots.values()]
+    return out
+
+
+def checkpoint_diff(ex, ck):
+    """The entries of ``ex``'s state that differ in bits from ``ck``, a
+    ``state_dict()`` of the same executor: every param, each optimizer's
+    step and slots (read to the host one at a time), the generator state
+    and the step count; [] when the checkpoint ``ex`` would write equals
+    ``ck``."""
+    bad = []
+    pairs = [(("param", k), v, ck["params"][k]) for k, v in ex.params.items()]
+    for name, st in ex.opt_state.items():
+        sv = ck["opt_state"][name]
+        pairs.append((("step", name), st["step"], sv["step"]))
+        pairs += [(("slot", var, k), t, sv["slots"][var][k])
+                  for var, slots in st["slots"].items()
+                  for k, t in slots.items()]
+    for key, t, want in pairs:
+        got = t.detach().float() if t.dtype == torch.bfloat16 else t.detach()
+        got = got.cpu().numpy()
+        if got.shape != want.shape or not np.array_equal(_np_bits(got),
+                                                         _np_bits(want)):
+            bad.append(key)
+    if not np.array_equal(ex.generator.get_state().numpy(),
+                          ck["generator_state"]):
+        bad.append("generator_state")
+    if ex._global_step != ck["global_step"]:
+        bad.append("global_step")
+    return bad
+
+
+def _same_bits(xs, ys):
+    return len(xs) == len(ys) and all(
+        x.dtype == y.dtype and torch.equal(_bits(x), _bits(y))
+        for x, y in zip(xs, ys))
+
+
+def capture_phase(ht, label, ex, name, feed, n=5, rs=20, turn=5):
+    """Phase 3f on one path's executor: its step captured in a CUDA graph
+    against the same step run eagerly (``disable_capture()``).  (1) ``n``
+    eager and ``n`` captured steps from the same state: the losses and the
+    checkpoint after them bitwise equal, generator state included; (2)
+    ``run_steps(rs)`` against ``rs`` ``run()`` calls from the same state:
+    the last loss and the checkpoint bitwise equal; (3) eager and captured
+    ms/step in alternating turns of ``turn`` steps (eager, captured,
+    captured, eager, twice), CUDA events; peak memory (eager: the most
+    allocated; captured: the most allocated plus the graph pool the
+    capture reserved), and traced windows of each in turns: busy time,
+    idle share, launches.  Returns the summary."""
+    sub = ex.subexecutor[name]
+    run = lambda: ex.run(name, feed_dict=feed)[0]  # noqa: E731
+    torch.cuda.synchronize()
+    start = ex.state_dict()
+    with ht.disable_capture():
+        eager = [run() for _ in range(n)]
+    ck = ex.state_dict()
+    ex.load_state_dict(start)
+    captured = [run() for _ in range(n)]
+    torch.cuda.synchronize()
+    diff = checkpoint_diff(ex, ck)
+    worst = max(abs(float(a) - float(b)) for a, b in zip(eager, captured))
+    same = _same_bits(eager, captured) and not diff
+    require(f"{label}: {n} captured steps against {n} eager steps from the "
+            "same state, bitwise: losses (largest |diff| "
+            f"{worst:.3e}) and the checkpoint after them, params, optimizer "
+            "state, generator state and step count"
+            + (f" (differ: {diff[:6]}, {len(diff)} in all)" if diff else ""),
+            same)
+    del ck
+    ex.load_state_dict(start)
+    last = [run() for _ in range(rs)][-1]
+    ck = ex.state_dict()
+    ex.load_state_dict(start)
+    del start
+    last_rs = ex.run_steps(name, feed, rs)[0]
+    torch.cuda.synchronize()
+    diff_rs = checkpoint_diff(ex, ck)
+    same_rs = _same_bits([last], [last_rs]) and not diff_rs
+    require(f"{label}: run_steps({rs}) against {rs} run() calls from the "
+            "same state, bitwise: the last loss and the checkpoint"
+            + (f" (differ: {diff_rs[:6]})" if diff_rs else ""), same_rs)
+    del ck
+    modes = {m: {"turns": [], "peak": 0} for m in ("eager", "captured")}
+    for mode in ("eager", "captured", "captured", "eager") * 2:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with (ht.disable_capture() if mode == "eager"
+              else contextlib.nullcontext()):
+            _, ms, _ = timed_window(run, {}, turn)
+        m = modes[mode]
+        m["turns"].append(ms / turn)
+        m["peak"] = max(m["peak"], torch.cuda.max_memory_allocated())
+    pool = sum(s.graph_bytes for s in ex.subexecutor.values())
+    modes["captured"]["peak"] += pool
+    # traced windows of ~200 ms of captured steps (a sub-ms step's trace
+    # is mostly the profiler's own start and stop), in turns (eager,
+    # captured, captured, eager); a window with under 90% of the most
+    # launches seen is traced again, up to 3 times: the profiler now and
+    # then drops a window's device records (a third of them, once)
+    n_prof = max(1, min(20, round(200 / min(modes["captured"]["turns"]))))
+    traces, most = {"eager": [], "captured": []}, 0
+    for mode in ("eager", "captured", "captured", "eager"):
+        for attempt in range(3):
+            with (ht.disable_capture() if mode == "eager"
+                  else contextlib.nullcontext()):
+                t = profile_steps(f"{label} {mode}", run, steps=n_prof,
+                                  top=0)
+            if t and t["launches"] >= 0.9 * most:
+                break
+            log(f"capture {label}: a traced {mode} window shows "
+                f"{t and t['launches']} launches a step of {most}; traced "
+                f"again ({attempt + 1} of 3)")
+        if t:
+            most = max(most, t["launches"])
+            traces[mode].append(t)
+    for mode, ts in traces.items():
+        ts = [t for t in ts if t["launches"] >= 0.9 * most]
+        if ts:
+            modes[mode].update({k: sum(t[k] for t in ts) / len(ts)
+                                for k in ("busy_ms", "idle")},
+                               launches=ts[0]["launches"],
+                               busy_turns=[t["busy_ms"] for t in ts])
+    out = {"path": label, "bitwise": same, "run_steps_bitwise": same_rs,
+           "graph_pool_gib": pool / 2**30, "signatures": len(sub._sigs)}
+    for mode, m in modes.items():
+        out[mode] = {"ms_per_step": sum(m["turns"]) / len(m["turns"]),
+                     "turns_ms": m["turns"], "peak_gib": m["peak"] / 2**30,
+                     **{k: m[k] for k in ("busy_ms", "busy_turns", "idle",
+                                          "launches") if k in m}}
+    e, c = out["eager"], out["captured"]
+    log(f"capture {label}: eager {e['ms_per_step']:.3f} ms/step, captured "
+        f"{c['ms_per_step']:.3f} (turns of {turn}: eager "
+        + " ".join(f"{t:.3f}" for t in e["turns_ms"]) + ", captured "
+        + " ".join(f"{t:.3f}" for t in c["turns_ms"])
+        + f"); busy {e.get('busy_ms', 0):.3f} / {c.get('busy_ms', 0):.3f} "
+        f"ms, idle {e.get('idle', 0):.3f} / {c.get('idle', 0):.3f}, "
+        f"launches {e.get('launches')} / {c.get('launches')} a step (busy "
+        f"in turns: eager {e.get('busy_turns')}, captured "
+        f"{c.get('busy_turns')}); peak "
+        f"{e['peak_gib']:.2f} / {c['peak_gib']:.2f} GiB (graph pool "
+        f"{pool / 2**30:.2f} GiB)")
+    if "busy_ms" in e and "busy_ms" in c:
+        log(f"capture {label}: captured busy time / eager "
+            f"{c['busy_ms'] / e['busy_ms']:.4f}")
+    return out
+
+
+def capture_negative_check(ht):
+    """Phase 3f: a step that reads a tensor on the host runs eagerly on
+    its first call and raises ``CaptureError`` naming the op on the next
+    (the capture), never running eagerly by itself; under
+    ``disable_capture()`` it runs."""
+    class HostRead(ht.Op):
+        def _compute(self, input_vals, ctx):
+            (x,) = input_vals
+            return x * float(x.sum())  # a host read inside the step
+
+    x = ht.placeholder_op("host_read_x", (4, 4))
+    ex = ht.Executor([HostRead(x, name="host_read_op")], device="cuda")
+    feed = {x: torch.ones(4, 4, device="cuda")}
+    first = ex.run(feed)[0]
+    try:
+        ex.run(feed)
+        raised = "no error"
+    except ht.CaptureError as e:
+        raised = str(e)
+    log(f"capture of a host read: {raised[:300]}")
+    with ht.disable_capture():
+        again = ex.run(feed)[0]
+    require("a step that reads a tensor on the host raises CaptureError "
+            "naming the op when captured, and runs under disable_capture()",
+            "host_read_op" in raised and torch.equal(again, first))
+    ex.close()
+    free_memory("after the capture negative check")
 
 
 def kernel_times(rng, fa, ce, B, S):
@@ -1456,9 +1686,11 @@ def ctr_executor(ht, models, cls, rng, rows, seed):
     return ex, feed, step
 
 
-def ctr_paths(ht, models, fns, rng, steps, seed):
-    """Phase 3c: W&D packed at both table sizes, then one step each of
-    DeepFM, DCN and DLRM; returns {rows: (ms/step, launches)}."""
+def ctr_paths(ht, models, fns, rng, steps, seed, captures):
+    """Phase 3c: W&D packed at both table sizes (each with phase 3f's
+    captured-against-eager checks, appended to ``captures``), then one
+    step each of DeepFM, DCN and DLRM; returns {rows: (ms/step,
+    launches)}."""
     out = {}
     for rows in (WDL_ROWS, CRITEO_ROWS):
         ex, feed, step = ctr_executor(ht, models, models.WDL, rng, rows, seed)
@@ -1467,18 +1699,25 @@ def ctr_paths(ht, models, fns, rng, steps, seed):
                                    expect_launches(pack_write=steps))
         out[rows] = ms, launches
         profile_steps(label, step, steps=2)
-        params, state = dict(ex.params), dict(ex.opt_state)
-        (logit,) = ex.run("predict", feed_dict=feed)
+        captures.append(capture_phase(ht, label, ex, "train", feed))
+        # a step writes the params and the optimizer state in place:
+        # checksums of each, before and after the predict runs (the first
+        # eager, the second captured)
+        sums = lambda: torch.stack(  # noqa: E731
+            [t.double().sum() for t in checkpoint_tensors(ex)])
+        before = sums()
+        logits = [ex.run("predict", feed_dict=feed)[0] for _ in range(2)]
         torch.cuda.synchronize()
-        require(f"{label}: predict gives {CTR_BATCH} finite logits and "
-                "changes no param nor optimizer state",
-                tuple(logit.shape) == (CTR_BATCH,)
-                and bool(torch.isfinite(logit).all())
-                and all(ex.params[k] is v for k, v in params.items())
-                and all(ex.opt_state[k] is v for k, v in state.items()))
+        require(f"{label}: predict gives {CTR_BATCH} finite logits, the "
+                "same from its eager and its captured run, and changes no "
+                "param nor optimizer state",
+                all(tuple(lg.shape) == (CTR_BATCH,)
+                    and bool(torch.isfinite(lg).all()) for lg in logits)
+                and _same_bits(logits[:1], logits[1:])
+                and torch.equal(before, sums()))
         ex.close()
-        del ex, feed, step, params, state
-        torch.cuda.empty_cache()
+        del ex, feed, step, logits
+        free_memory(f"after the {label}")
     for cls in (models.DeepFM, models.DCN, models.DLRM):
         ex, _, step = ctr_executor(ht, models, cls, rng, WDL_ROWS, seed)
         for fn in fns.values():
@@ -1492,7 +1731,7 @@ def ctr_paths(ht, models, fns, rng, steps, seed):
                 and launches == expect_launches(pack_write=1))
         ex.close()
         del ex, step
-    torch.cuda.empty_cache()
+    free_memory("after DeepFM, DCN and DLRM")
     return out
 
 
@@ -1544,7 +1783,7 @@ def checkpoint_roundtrip(ht, models, rng, seed):
             and err <= 1e-6 * abs(float(want)))
     ex.close()
     fresh.close()
-    torch.cuda.empty_cache()
+    free_memory("after the checkpoint round trip")
 
 
 def pack_write_times(rng, sd):
@@ -1652,7 +1891,8 @@ def cross_device_ctr(ht, models, rng, seed):
     ex_gpu = ht.Executor(nodes, device="cuda", seed=seed + 3)
     ex_cpu = ht.Executor(nodes, device="cpu", seed=seed + 4)
     ex_cpu.load_state_dict(ex_gpu.state_dict())
-    init = {k: v.cpu() for k, v in ex_cpu.params.items()}
+    # copies: a step writes the params in place
+    init = {k: v.clone() for k, v in ex_cpu.params.items()}
     feed = ctr_batch(rng, WDL_ROWS, feeds, "cpu")
     out_gpu = ex_gpu.run("train", feed_dict=feed)
     out_cpu = ex_cpu.run("train", feed_dict=feed)
@@ -1710,7 +1950,7 @@ def build_moe(ht, layers, moe):
 def moe_executor(ht, layers, rng, moe, seed):
     """``Executor({"train": [loss, Adam(1e-3).minimize(loss)]})`` on the
     card, bench_moe's feeds (x normal, y zeros) on the card, and a step
-    that returns the loss."""
+    that returns the loss: (ex, step, init seconds, feed)."""
     with ht.name_scope():
         loss, x, y = build_moe(ht, layers, moe)
         train_op = ht.AdamOptimizer(1e-3).minimize(loss)
@@ -1727,15 +1967,17 @@ def moe_executor(ht, layers, rng, moe, seed):
         if none is not None:
             raise RuntimeError("run('train') must return [loss, None]")
         return val
-    return ex, step, init_s
+    return ex, step, init_s, feed
 
 
-def moe_paths(ht, layers, fns, rng, steps, seed):
+def moe_paths(ht, layers, fns, rng, steps, seed, captures):
     """Phase 3d: bench_moe's training step at full size, its determinism,
-    and the Mixtral-width layer; returns (ms/step, launches) of bench_moe."""
+    and the Mixtral-width layer, each with phase 3f's captured-against-
+    eager checks (appended to ``captures``); returns (ms/step, launches)
+    of bench_moe."""
     m = MOE
     tokens = m["B"] * m["S"]
-    ex, step, init_s = moe_executor(ht, layers, rng, m, seed)
+    ex, step, init_s, feed = moe_executor(ht, layers, rng, m, seed)
     log(f"moe path: MoELayer({m['H']}, {m['F']}, {m['E']} experts, top-"
         f"{m['k']}, capacity {m['cf']}, {m['act']}) B={m['B']} S={m['S']} "
         f"f32, Adam(1e-3), {sum(p.numel() for p in ex.params.values())} "
@@ -1748,14 +1990,15 @@ def moe_paths(ht, layers, fns, rng, steps, seed):
         f"{tokens * 1000.0 / ms:.1f} ({ms:.3f} ms/step, "
         f"{launches['row_gather'] / steps:g} row_gather launches/step)")
     profile_steps(label, step, steps=1)
+    captures.append(capture_phase(ht, label, ex, "train", feed))
     ex.close()
-    del ex, step
+    del ex, step, feed
     # the same 3 steps twice from the same params (the seed's init): the
     # losses and the params after them must be bitwise equal
     runs = []
     for _ in range(2):
-        ex, step, _ = moe_executor(ht, layers,
-                                   np.random.default_rng(seed + 5), m, seed)
+        ex, step, _, _ = moe_executor(
+            ht, layers, np.random.default_rng(seed + 5), m, seed)
         runs.append(([float(step()) for _ in range(3)],
                      {k: v.clone() for k, v in ex.params.items()}))
         ex.close()
@@ -1766,20 +2009,22 @@ def moe_paths(ht, layers, fns, rng, steps, seed):
             "equal losses and params",
             l1 == l2 and all(torch.equal(p1[k], p2[k]) for k in p1))
     del runs, p1, p2
-    torch.cuda.empty_cache()
+    free_memory("after the moe path")
 
     mx = MIXTRAL
-    ex, step, init_s = moe_executor(ht, layers, rng, mx, seed)
+    ex, step, init_s, feed = moe_executor(ht, layers, rng, mx, seed)
     log(f"mixtral moe layer: MoELayer({mx['H']}, {mx['F']}, {mx['E']} "
         f"experts, top-{mx['k']}, capacity {mx['cf']}, {mx['act']}) "
         f"B={mx['B']} S={mx['S']} f32, Adam(1e-3), "
         f"{sum(p.numel() for p in ex.params.values())} params, init "
         f"{init_s:.1f} s")
     run_path("mixtral moe layer", step, fns, 3, mx["B"] * mx["S"],
-             expect_launches(row_gather=9), warmup=1, unit="tokens")
+             expect_launches(row_gather=9), warmup=2, unit="tokens")
+    captures.append(capture_phase(ht, "mixtral moe layer", ex, "train",
+                                  feed, n=3, turn=2))
     ex.close()
-    del ex, step
-    torch.cuda.empty_cache()
+    del ex, step, feed
+    free_memory("after the mixtral moe layer")
     return ms, launches
 
 
@@ -1872,7 +2117,8 @@ def cross_device_moe(ht, layers, md, rng, seed):
     ex_gpu = ht.Executor(nodes, device="cuda", seed=seed + 6)
     ex_cpu = ht.Executor(nodes, device="cpu", seed=seed + 7)
     ex_cpu.load_state_dict(ex_gpu.state_dict())
-    init = {k: v.cpu() for k, v in ex_cpu.params.items()}
+    # copies: a step writes the params in place
+    init = {k: v.clone() for k, v in ex_cpu.params.items()}
     shape = (2, 32, 128)
     feed = {x: torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)), y: torch.zeros(shape)}
@@ -1994,7 +2240,7 @@ def llama_executor(ht, models, rng, c, seed, mesh):
     """``Executor({"train": [loss, AdamW(1e-4, wd 0.01).minimize(loss)]},
     mesh=mesh, compute_dtype=bfloat16)`` on the card, bench_llama's feed
     (ids, and the ids rolled by one as labels) and a step returning the
-    loss."""
+    loss: (ex, step, init seconds, feed)."""
     with ht.name_scope():
         loss, ids, labels = build_llama(ht, models, c)
         train_op = ht.AdamWOptimizer(learning_rate=1e-4,
@@ -2014,15 +2260,17 @@ def llama_executor(ht, models, rng, c, seed, mesh):
         if none is not None:
             raise RuntimeError("run('train') must return [loss, None]")
         return val
-    return ex, step, init_s
+    return ex, step, init_s, feed
 
 
-def llama_paths(ht, models, ht_parallel, fns, rng, steps, seed):
+def llama_paths(ht, models, ht_parallel, fns, rng, steps, seed, captures):
     """Phase 3e: bench_llama's Llama trained under a 4-position cp mesh on
     the card (the flash ring: 4 block launches of each kernel a layer)
     and without a mesh (the single-device flash kernels), from the same
     params, timed in turns; then 2 layers at Mistral-7B's widths at S=8192
-    under cp=4.  Returns {label: (ms/step, launches, first loss)}."""
+    under cp=4; each with phase 3f's captured-against-eager checks
+    (appended to ``captures``).  Returns {label: (ms/step, launches, first
+    loss)}."""
     out = {}
     c = LLAMA
     tokens = c["B"] * c["S"]
@@ -2045,7 +2293,7 @@ def llama_paths(ht, models, ht_parallel, fns, rng, steps, seed):
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         # the same seed gives both executors the same params and batch
-        ex, step, init_s = llama_executor(
+        ex, step, init_s, feed = llama_executor(
             ht, models, np.random.default_rng(seed + 9), c, seed, m)
         log(f"{label}: Llama V={c['V']} H={c['H']} L={L} heads "
             f"{c['heads']}/{c['kv']} FFN {c['F']} B={c['B']} S={c['S']}, "
@@ -2055,7 +2303,8 @@ def llama_paths(ht, models, ht_parallel, fns, rng, steps, seed):
             f"{init_s:.1f} s")
         losses = [step() for _ in range(3)]
         torch.cuda.synchronize()
-        paths[label] = dict(ex=ex, step=step, expect=expect, losses=losses,
+        paths[label] = dict(ex=ex, step=step, feed=feed, expect=expect,
+                            losses=losses,
                             resident=torch.cuda.memory_allocated() - before,
                             turns=[], peak=0,
                             launches=dict.fromkeys(COUNTER_NAMES, 0))
@@ -2081,10 +2330,13 @@ def llama_paths(ht, models, ht_parallel, fns, rng, steps, seed):
                     p["resident"])
         profile_steps(label, p["step"], steps=1)
         out[label] = (ms, p["launches"], losses[0])
+    for label, p in paths.items():
+        captures.append(capture_phase(ht, label, p["ex"], "train",
+                                      p["feed"]))
     for p in paths.values():
         p["ex"].close()
     del paths, p
-    torch.cuda.empty_cache()
+    free_memory("after the llama paths")
     (ms_cp, _, first_cp), (ms_sd, _, first_sd) = out.values()
     log(f"llama paths: cp=4 {ms_cp:.3f} ms/step ({tokens * 1000 / ms_cp:.1f}"
         f" tokens/s), mesh-less {ms_sd:.3f} ms/step "
@@ -2098,7 +2350,7 @@ def llama_paths(ht, models, ht_parallel, fns, rng, steps, seed):
 
     w = MISTRAL
     mesh = ht_parallel.make_mesh({"cp": w["cp"]}, devices=[cuda] * w["cp"])
-    ex, step, init_s = llama_executor(ht, models, rng, w, seed, mesh)
+    ex, step, init_s, feed = llama_executor(ht, models, rng, w, seed, mesh)
     log(f"mistral-width witness: H={w['H']} heads {w['heads']}/{w['kv']} "
         f"(d={w['H'] // w['heads']}) FFN {w['F']} V={w['V']}, {w['L']} of "
         f"32 layers, B={w['B']} S={w['S']} cp={w['cp']} (local "
@@ -2109,12 +2361,14 @@ def llama_paths(ht, models, ht_parallel, fns, rng, steps, seed):
     _, ms_w, _ = run_path(
         "mistral-width witness", step, fns, 3, w["B"] * w["S"],
         expect_launches(**flash_launches(n, block=True), softmax_ce_fwd=3,
-                        softmax_ce_bwd=3), warmup=1, unit="tokens")
+                        softmax_ce_bwd=3), warmup=2, unit="tokens")
     profile_steps("mistral-width witness", step, steps=1)
+    captures.append(capture_phase(ht, "mistral-width witness", ex, "train",
+                                  feed, n=3, turn=2))
     out["mistral-width witness"] = (ms_w, None, None)
     ex.close()
-    del ex, step
-    torch.cuda.empty_cache()
+    del ex, step, feed
+    free_memory("after the mistral-width witness")
     return out
 
 
@@ -2277,7 +2531,8 @@ def cross_device_llama(ht, models, ht_parallel, fns, rng, seed):
                          mesh=ht_parallel.make_mesh({"cp": 4},
                                                     devices=["cpu"] * 4))
     ex_cpu.load_state_dict(ex_gpu.state_dict())
-    init = {k: v.cpu() for k, v in ex_cpu.params.items()}
+    # copies: a step writes the params in place
+    init = {k: v.clone() for k, v in ex_cpu.params.items()}
     ids_v = rng.integers(0, c["V"], (c["B"], c["S"]))
     feed = {ids: torch.from_numpy(ids_v.astype(np.int32)),
             labels: torch.from_numpy(np.roll(ids_v, -1, 1).astype(np.int32))}
@@ -2419,6 +2674,7 @@ def main():
 
     # -- phase 3: the main paths --------------------------------------------
     fns = counters(fa, ce, sd, md)
+    capture_negative_check(ht)
     B, S, L = 64, 512, 12
     steps = args.steps
     loss = build_bert(ht, models, B, S, L)
@@ -2438,9 +2694,10 @@ def main():
         log(f"FAILED: {failures}")
         return 1
     profile_steps("eval path", eval_step)
+    captures = [capture_phase(ht, "eval path", ex, "validate", feed)]
     ex.close()  # frees params now: the executor is in a reference cycle
     del ex, eval_step
-    torch.cuda.empty_cache()
+    free_memory("after the eval path")
 
     loss = build_bert(ht, models, B, S, L, dropout=0.1)
     opt = ht.AdamWOptimizer(learning_rate=1e-4, weight_decay=0.01)
@@ -2468,20 +2725,23 @@ def main():
         log(f"FAILED: {failures}")
         return 1
     profile_steps("train path", train_step, steps=1)
+    captures.append(capture_phase(ht, "train path", ex, "train", feed))
     ex.close()
     del ex, feed, train_step
-    torch.cuda.empty_cache()
+    free_memory("after the train path")
 
-    ctr = ctr_paths(ht, models, fns, rng, steps, args.seed)
+    ctr = ctr_paths(ht, models, fns, rng, steps, args.seed, captures)
     checkpoint_roundtrip(ht, models, rng, args.seed)
     if failures:
         log(f"FAILED: {failures}")
         return 1
-    moe_ms, moe_launches = moe_paths(ht, layers, fns, rng, steps, args.seed)
+    moe_ms, moe_launches = moe_paths(ht, layers, fns, rng, steps, args.seed,
+                                     captures)
     if failures:
         log(f"FAILED: {failures}")
         return 1
-    llama = llama_paths(ht, models, htp, fns, rng, steps, args.seed)
+    llama = llama_paths(ht, models, htp, fns, rng, steps, args.seed,
+                        captures)
     if failures:
         log(f"FAILED: {failures}")
         return 1
@@ -2567,6 +2827,7 @@ def main():
         + f"; moe path: {moe_ms:.3f} ms/step; "
         + "; ".join(f"{label}: {v[0]:.3f} ms/step"
                     for label, v in llama.items()))
+    log(json.dumps({"capture": captures}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

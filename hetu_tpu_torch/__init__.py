@@ -1,9 +1,13 @@
 """hetu_tpu_torch — the PyTorch/CUDA port of hetu_tpu for NVIDIA Hopper.
 
 The same define-then-run graph API as ``hetu_tpu`` (placeholders,
-Variables, ``*_op`` constructors, layers, models, ``Executor``), evaluated
-eagerly with PyTorch on an explicit device: the card unless the caller
-passes ``device="cpu"``.  Each Pallas TPU kernel on a ported path is a
+Variables, ``*_op`` constructors, layers, models, ``Executor`` with
+``run``, ``run_steps`` and ``profile``), run with PyTorch on an explicit
+device: the card unless the caller passes ``device="cpu"``.  On the card
+each subgraph's step is captured in a CUDA graph and replayed, as
+``jax.jit`` compiles it once; ``disable_capture()`` runs steps eagerly, as
+``jax.disable_jit()`` does, and on the CPU every step runs the same step
+body eagerly.  Each Pallas TPU kernel on a ported path is a
 hand-written Hopper kernel here (``ops/kernels/``, ``csrc/``).  The port
 imports nothing of JAX or of ``hetu_tpu``.
 
@@ -21,8 +25,8 @@ from __future__ import annotations
 import numpy as np
 
 from .graph import (Op, PlaceholderOp, VariableOp, find_topo_sort,
-                    graph_variables, gradients, Executor, name_scope,
-                    scoped_init)
+                    graph_variables, gradients, CaptureError, Executor,
+                    disable_capture, name_scope, scoped_init)
 from . import initializers as init
 from .ops import *  # noqa: F401,F403
 from .optim import AdamOptimizer, AdamWOptimizer

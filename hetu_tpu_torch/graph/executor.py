@@ -1,20 +1,39 @@
-"""Executor: named subgraphs evaluated eagerly on one device.
+"""Executor: named subgraphs run as one step each on one device.
 
 Counterpart of ``hetu_tpu/graph/executor.py`` on one device.  The JAX
-executor jit-compiles each named subgraph into one XLA program; here
-``run`` walks the subgraph's topo order eagerly on an explicit device.  A
-subgraph trains, as in JAX, iff it holds an optimizer or gradient op and
+executor jit-compiles each named subgraph into one XLA program; here one
+step function (``SubExecutor._body``) walks the subgraph's topo order op by
+op on an explicit device.  On the card that step is captured in one CUDA
+graph per signature (the subgraph and each placeholder's shape, as
+``jax.jit`` retraces on a new signature): the first call of a signature
+runs the body eagerly on a side stream (it builds the hand-written
+kernels and settles the allocator), the second captures it on that
+stream into the subgraph's memory pool, with the executor's generator
+registered so that each replay draws fresh bits and advances it as an
+eager step does, and every later call replays the graph.  Inside the
+graph each hand-written kernel stays one launch.  The body reads its
+feeds from per-signature static buffers, writes new params and optimizer
+state into the tensors already in ``params`` and ``opt_state``, and
+returns clones of its outputs, so a replay never works on stale storage
+and a value returned once is never changed by a later step.  A capture
+that fails (a host read inside the step, an op that cannot be captured)
+raises naming the op; nothing falls back to eager by itself.
+``disable_capture()`` (the counterpart of ``jax.disable_jit()``) runs
+steps eagerly on the card; on the CPU every step runs the same body
+eagerly.  ``run_steps`` runs n steps on the same feeds (n replays, no
+sync between them), ``profile`` wall-clocks captured steps.
+
+A subgraph trains, as in JAX, iff it holds an optimizer or gradient op and
 its name is not ``validate``/``inference``/``eval`` (an explicit
 ``training=`` overrides): training turns dropout on.  Subgraphs that
 train or hold gradient ops run with autograd recording; the others run
-under ``torch.inference_mode()``, and what they record into ``params`` is
-cloned out of inference mode so that a later training step can use it.
-Mixed precision follows the JAX policy: with ``compute_dtype``, floating
-params and feeds are cast for the step while ``params`` keep their own
-dtype (the optimizers update these f32 masters), and integers are never
-cast.  Updates that ops record (optimizer steps, the
-BERT MLM overflow counter) are written back into ``params`` in each
-param's dtype, and each optimizer's state is kept in ``opt_state``.
+under ``torch.inference_mode()``.  Mixed precision follows the JAX policy:
+with ``compute_dtype``, floating params and feeds are cast for the step
+while ``params`` keep their own dtype (the optimizers update these f32
+masters), and integers are never cast.  Updates that ops record
+(optimizer steps, the BERT MLM overflow counter) are written into
+``params`` in each param's dtype once the step's walk is done, and each
+optimizer's state is kept in ``opt_state``.
 
 A ``mesh`` (parallel/mesh.py) whose positions all sit on the executor's
 device gives the ops a ``cp`` axis to lower long-context attention onto
@@ -24,7 +43,10 @@ whole on that device, as the JAX executor replicates them over the mesh.
 ``state_dict`` / ``load_state_dict`` and ``save`` / ``load`` (through
 ``graph/checkpoint.py``) carry the params, every optimizer's step and
 slots, the step count and the generator's state, so that a resumed run
-continues bitwise where the saved one stopped.
+continues bitwise where the saved one stopped.  ``load_params`` and
+``load_state_dict`` copy into the executor's tensors, so captured graphs
+stay valid; a tensor put into ``params`` or ``opt_state`` by hand is seen
+before the next replay, and the subgraph's graphs are captured anew.
 
 Guards, numerics, data parallelism and the parameter server are later
 slices (ROADMAP.md).  Those arguments raise ``NotImplementedError`` here
@@ -33,12 +55,16 @@ rather than being ignored.
 
 from __future__ import annotations
 
+import contextlib
+import operator
+import time
 import warnings
 import zlib
 
 import numpy as np
 import torch
 
+from ..ops import kernels
 from .checkpoint import (CheckpointError, atomic_pickle, read_checkpoint,
                          validate_state)
 from .node import Op, PlaceholderOp, VariableOp, find_topo_sort
@@ -55,6 +81,25 @@ _LATER = {
     "numerics": "slice G (telemetry)",
 }
 _CP_IMPLS = ("ring", "ulysses")
+_CAPTURE = [True]
+
+
+@contextlib.contextmanager
+def disable_capture():
+    """Run the steps started inside eagerly, op by op, on the card too:
+    the counterpart of ``jax.disable_jit()``, for comparing a captured
+    step with its eager run and for stepping through one.  Captured
+    graphs are kept for later calls."""
+    prev = _CAPTURE[0]
+    _CAPTURE[0] = False
+    try:
+        yield
+    finally:
+        _CAPTURE[0] = prev
+
+
+class CaptureError(RuntimeError):
+    """A step could not be captured in a CUDA graph."""
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -84,15 +129,30 @@ def init_seed(seed: int, name: str) -> int:
 
 
 def _to_numpy(t):
-    t = t.detach().cpu()
+    # a copy: the executor's steps update its tensors in place
+    t = t.detach().to("cpu", copy=True)
     # numpy has no bfloat16: return such outputs as float32
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
 
 
+class _Signature:
+    """One feed signature of a subgraph: its static feed buffers and, once
+    captured, its CUDA graph, the graph's outputs, the launches its
+    capture counted, the state tensors it was captured on and the bytes
+    its capture reserved."""
+
+    def __init__(self, feeds):
+        self.feeds = feeds
+        self.warm = False
+        self.graph = None
+        self.outputs = self.launches = self.bound = None
+        self.graph_bytes = 0
+
+
 class SubExecutor:
-    """One named subgraph, evaluated eagerly in topo order."""
+    """One named subgraph, run as one step (captured on the card)."""
 
     def __init__(self, name, eval_nodes, executor):
         self.name = name
@@ -121,8 +181,12 @@ class SubExecutor:
         self._monitor_interval = int(
             executor.config.get("monitor_interval", 200))
         self._runs = 0
+        self._sigs = {}    # {feed shapes: _Signature}
+        self._pool = None  # the CUDA graph memory pool of this subgraph
 
-    def _feeds(self, feed_dict):
+    def _signature(self, feed_dict):
+        """The signature of ``feed_dict``, its feeds copied into the
+        signature's static buffers (in each placeholder's dtype)."""
         ex = self.executor
         fed = {}
         for node, value in (feed_dict or {}).items():
@@ -130,22 +194,29 @@ class SubExecutor:
         missing = [p.name for p in self.placeholders if p.name not in fed]
         if missing:
             raise ValueError(f"missing feeds for placeholders: {missing}")
-        feeds = {}
-        for p in self.placeholders:
-            v = fed[p.name]
-            want = torch_dtype(p.dtype)
-            if isinstance(v, torch.Tensor):
-                feeds[p] = v.to(device=ex.device, dtype=want)
-            else:
-                feeds[p] = torch.as_tensor(np.asarray(v)).to(
-                    device=ex.device, dtype=want)
-        return feeds
+        values = [fed[p.name] for p in self.placeholders]
+        values = [v if isinstance(v, torch.Tensor)
+                  else torch.as_tensor(np.asarray(v)) for v in values]
+        key = tuple(tuple(v.shape) for v in values)
+        sig = self._sigs.get(key)
+        if sig is None:
+            sig = self._sigs[key] = _Signature({
+                p: torch.empty(v.shape, dtype=torch_dtype(p.dtype),
+                               device=ex.device)
+                for p, v in zip(self.placeholders, values)})
+        for p, v in zip(self.placeholders, values):
+            sig.feeds[p].copy_(v)
+        return sig
 
-    def run(self, feed_dict=None, convert_to_numpy_ret_vals=False):
+    def _body(self, feeds, ctxs=None):
+        """The step: the walk on the static feeds, the recorded updates
+        written into ``params`` in place, and clones of the outputs (taken
+        before those writes).  The step's TraceContext is appended to
+        ``ctxs`` when given (a capture names the failing op from it)."""
         ex = self.executor
         cast = ex._cast
         bindings = {v: cast(ex.params[v.name]) for v in self.variables}
-        for p, v in self._feeds(feed_dict).items():
+        for p, v in feeds.items():
             bindings[p] = cast(v)
         ctx = TraceContext(
             generator=ex.generator, training=self.training,
@@ -153,24 +224,189 @@ class SubExecutor:
             else None, mesh=ex.mesh,
             cp_impl=ex.config.get("cp_impl", "ring"))
         ctx.opt_state = ex.opt_state
+        if ctxs is not None:
+            ctxs.append(ctx)
         with (torch.enable_grad() if self.has_grads or self.training
               else torch.inference_mode()):
             vals = evaluate(self.eval_nodes, bindings, ctx, topo=self.topo)
-        for var, val in ctx.updates.items():
-            if val.is_inference():
-                val = val.clone()
-            ex.params[var.name] = val.detach().to(ex.params[var.name].dtype)
-        ex.opt_state.update(ctx.new_opt_state)
-        vals = [v.detach() if isinstance(v, torch.Tensor) else v
-                for v in vals]
-        ex._global_step += 1
-        self._runs += 1
-        if self._monitor_vars and (
-                self._runs == 1 or self._runs % self._monitor_interval == 0):
-            self.check_monitors()
-        if convert_to_numpy_ret_vals:
-            vals = [None if v is None else _to_numpy(v) for v in vals]
+            vals = [v.detach().clone() if isinstance(v, torch.Tensor)
+                    else v for v in vals]
+            with torch.no_grad():
+                for var, val in ctx.updates.items():
+                    ex.params[var.name].copy_(val)
+                for var, d in ctx.decrements.items():
+                    ex.params[var.name].sub_(d)
         return vals
+
+    def _state(self):
+        """The tensors a captured step reads and writes in place, and the
+        generator it draws from."""
+        ex = self.executor
+        out = [ex.generator]
+        out += [ex.params[v.name] for v in self.variables]
+        for op in self.opt_ops:
+            st = ex.opt_state[op.name]
+            out.append(st["step"])
+            out += [t for slots in st["slots"].values()
+                    for t in slots.values()]
+        return out
+
+    def _step(self, sig):
+        """One step on ``sig``'s feeds: eager on the CPU and under
+        ``disable_capture()``; on the card the first call of a signature
+        eager, the second captured, then replays."""
+        if self.executor.device.type != "cuda" or not _CAPTURE[0]:
+            return self._body(sig.feeds)
+        if sig.graph is not None:
+            state = self._state()
+            if not (len(state) == len(sig.bound)
+                    and all(map(operator.is_, state, sig.bound))):
+                self._drop()  # a param, a slot or the generator was replaced
+        if sig.graph is None:
+            if not sig.warm:
+                sig.warm = True
+                return self._eager_on_side(sig)
+            self._capture(sig)
+        kernels.add_launches(sig.launches)
+        sig.graph.replay()
+        return [None if v is None else v.clone() for v in sig.outputs]
+
+    def _eager_on_side(self, sig):
+        cur = torch.cuda.current_stream(self.executor.device)
+        side = self.executor._side_stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            vals = self._body(sig.feeds)
+        cur.wait_stream(side)
+        for v in vals:
+            if isinstance(v, torch.Tensor):
+                v.record_stream(cur)
+        return vals
+
+    def _capture(self, sig):
+        ex = self.executor
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(ex.generator)
+        if self._pool is None:
+            # one pool for the subgraph's signatures: a capture may reuse
+            # what another's freed, since no two replay at once and each
+            # replay's outputs are cloned before the next
+            self._pool = torch.cuda.graph_pool_handle()
+        gen_state = ex.generator.get_state()
+        counts = kernels.launch_counts()
+        torch.cuda.synchronize(ex.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(ex.device)
+        ctxs = []
+        try:
+            # torch.cuda.graph's steps, with the stream restored also when
+            # the capture fails (its __exit__ skips that when capture_end
+            # raises)
+            with torch.cuda.stream(ex._side_stream()):
+                graph.capture_begin(pool=self._pool)
+                try:
+                    outputs = self._body(sig.feeds, ctxs)
+                finally:
+                    graph.capture_end()
+        except Exception as e:
+            op = ctxs[0].op if ctxs else None
+            self._abandon_pool()
+            # the generator stays in capture mode: replace it by a fresh
+            # one in the same state (the capture advanced nothing)
+            ex.generator = torch.Generator(device=ex.device)
+            ex.generator.set_state(gen_state)
+            root = e  # the op's own error, under the failed capture's end
+            while root.__context__ is not None:
+                root = root.__context__
+            raise CaptureError(
+                f"subgraph {self.name!r}: capturing its step in a CUDA "
+                f"graph failed at op {op} ({type(root).__name__}: "
+                f"{str(root).splitlines()[0] if str(root) else ''}).  A "
+                "step must not read a tensor on the host (.item(), "
+                "float(t), nonzero, a boolean mask, a shape from data); "
+                "run it under hetu_tpu_torch.disable_capture() to run it "
+                "eagerly") from e
+        finally:
+            after = kernels.launch_counts()
+            kernels.restore_launches(counts)
+        sig.launches = {k: n - counts.get(k, 0) for k, n in after.items()
+                        if n != counts.get(k, 0)}
+        sig.graph, sig.outputs, sig.bound = graph, outputs, self._state()
+        sig.graph_bytes = torch.cuda.memory_reserved(ex.device) - reserved
+
+    def _abandon_pool(self):
+        """After a failed capture: a ``capture_end`` that raises leaves the
+        allocator routing the side stream's allocations into the pool (as
+        PyTorch 2.11 does); end that, and capture later graphs into a new
+        pool."""
+        dev = self.executor.device
+        try:
+            torch._C._cuda_endAllocateToPool(
+                torch.cuda.current_device() if dev.index is None
+                else dev.index, self._pool)
+        except RuntimeError:
+            pass  # capture_end had ended it
+        self._pool = None
+
+    @property
+    def graph_bytes(self):
+        """The device bytes the captures of this subgraph's graphs
+        reserved (their memory pool), 0 before any capture."""
+        return sum(sig.graph_bytes for sig in self._sigs.values()
+                   if sig.graph is not None)
+
+    def _drop(self):
+        """Forget this subgraph's captured graphs (the next call of each
+        signature captures anew) and their memory pool."""
+        for sig in self._sigs.values():
+            sig.graph = sig.outputs = sig.launches = sig.bound = None
+        self._pool = None
+
+    def _advance(self, n):
+        """Count ``n`` steps; check the monitors when one of them falls on
+        the cadence (the first run, then every ``monitor_interval``)."""
+        self.executor._global_step += n
+        first = self._runs + 1
+        self._runs += n
+        every = self._monitor_interval
+        if self._monitor_vars and (
+                first == 1 or self._runs // every > (first - 1) // every):
+            self.check_monitors()
+
+    def run(self, feed_dict=None, convert_to_numpy_ret_vals=False):
+        vals = self._step(self._signature(feed_dict))
+        self._advance(1)
+        return _returned(vals, convert_to_numpy_ret_vals)
+
+    def run_steps(self, feed_dict, n, convert_to_numpy_ret_vals=False):
+        """Run ``n`` consecutive steps on the SAME feeds and return the
+        last step's values (the JAX package's ``run_steps``, one
+        ``lax.fori_loop`` dispatch there).  The feeds are copied once; on
+        the card each step is a replay of the captured graph, with no
+        sync between them.  The step count and the generator advance as
+        over ``n`` ``run()`` calls, and the results are the same bits."""
+        if n < 1:
+            raise ValueError(f"run_steps needs n >= 1, got {n}")
+        sig = self._signature(feed_dict)
+        for _ in range(n):
+            vals = self._step(sig)
+        self._advance(n)
+        return _returned(vals, convert_to_numpy_ret_vals)
+
+    def profile(self, feed_dict=None, repeats=10):
+        """Wall-clock ``repeats`` steps, after the warm-up that brings the
+        signature to replays (reference ``SubExecutor.profile``): seconds
+        a step, the device synchronised at the end."""
+        sig = self._signature(feed_dict)
+        for _ in range(2 if self.executor.device.type == "cuda"
+                       and _CAPTURE[0] and sig.graph is None else 1):
+            self.run(feed_dict)
+        _sync(self.executor.device)
+        start = time.perf_counter()
+        for _ in range(repeats):
+            self.run(feed_dict)
+        _sync(self.executor.device)
+        return (time.perf_counter() - start) / repeats
 
     def check_monitors(self):
         """Warn on any tripped monitor counter (MLM overflow etc.)."""
@@ -178,6 +414,17 @@ class SubExecutor:
             msg = v.monitor(float(self.executor.params[v.name]))
             if msg:
                 warnings.warn(msg)
+
+
+def _returned(vals, to_numpy):
+    if to_numpy:
+        return [None if v is None else _to_numpy(v) for v in vals]
+    return vals
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class Executor:
@@ -190,8 +437,8 @@ class Executor:
     from which dropout draws.  ``rng_impl`` is accepted for the JAX
     package's signature (it picks a JAX PRNG there) and selects nothing:
     the port has one generator kind.  ``donate_params`` is accepted and
-    selects nothing either: each step's updates are new tensors that
-    replace the old in ``params``, which frees them.
+    selects nothing either: each step writes its updates into the tensors
+    already in ``params`` and ``opt_state``, so no step holds two copies.
     """
 
     def __init__(self, eval_node_dict, ctx=None, seed=0, mesh=None,
@@ -224,6 +471,7 @@ class Executor:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
         self._global_step = 0
+        self._stream = None  # the side stream steps are captured on
 
         all_nodes = [n for lst in self.eval_node_dict.values() for n in lst]
         self.all_topo = find_topo_sort(all_nodes)
@@ -253,6 +501,11 @@ class Executor:
         self.subexecutor = {name: SubExecutor(name, nodes, self)
                             for name, nodes in self.eval_node_dict.items()}
 
+    def _side_stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
     def _cast(self, x):
         if self.compute_dtype is not None and x.is_floating_point():
             return x.to(self.compute_dtype)
@@ -270,12 +523,37 @@ class Executor:
             feed_dict=feed_dict,
             convert_to_numpy_ret_vals=convert_to_numpy_ret_vals)
 
+    def run_steps(self, name, feed_dict, n, convert_to_numpy_ret_vals=False):
+        """Run ``n`` steps of subgraph ``name`` on the same feeds and
+        return the last step's values (see ``SubExecutor.run_steps``)."""
+        return self.subexecutor[name].run_steps(
+            feed_dict, n,
+            convert_to_numpy_ret_vals=convert_to_numpy_ret_vals)
+
+    def profile(self, name=None, feed_dict=None, repeats=10,
+                trace_dir=None):
+        """Wall-clock ``repeats`` steps of subgraph ``name`` (reference
+        ``Executor.profile``): ``(avg_seconds_per_step, None)``, a pair as
+        in the JAX package, whose second item holds per-op aggregates
+        when ``trace_dir`` is given."""
+        if trace_dir is not None:
+            raise NotImplementedError(
+                "profile(trace_dir=...) writes per-op aggregates through "
+                "the timeline module, which arrives with slice G "
+                "(telemetry) of the port (ROADMAP.md)")
+        if name is None:
+            name = next(iter(self.subexecutor))
+        return self.subexecutor[name].profile(feed_dict,
+                                              repeats=repeats), None
+
     def check_monitors(self):
         for sub in self.subexecutor.values():
             sub.check_monitors()
 
     def get_params(self):
-        return dict(self.params)
+        """A copy of the params: the executor updates its own tensors in
+        place at every step."""
+        return {k: v.clone() for k, v in self.params.items()}
 
     def load_params(self, params, dtype=None):
         """Replace every param from a JAX executor's ``params`` converted
@@ -284,8 +562,9 @@ class Executor:
         from ..weights import params_from_jax
         expect = {v.name: (v.shape, torch_dtype(v.dtype))
                   for v in self.variables}
-        self.params = params_from_jax(params, self.device, dtype=dtype,
-                                      expect=expect)
+        for name, value in params_from_jax(params, self.device, dtype=dtype,
+                                           expect=expect).items():
+            _assign(self.params, name, value)
 
     def state_dict(self):
         """The executor's state as numpy, with the JAX package's keys
@@ -381,8 +660,14 @@ class Executor:
                 f"{state['generator_device']} generator's; this executor's "
                 f"{self.device.type} generator keeps its own state",
                 stacklevel=2)
-        self.params.update(params)
-        self.opt_state.update(opt_state)
+        for name, value in params.items():
+            _assign(self.params, name, value)
+        for name, st in opt_state.items():
+            cur = self.opt_state[name]
+            _assign(cur, "step", st["step"])
+            for var, slots in st["slots"].items():
+                for k, value in slots.items():
+                    _assign(cur["slots"][var], k, value)
         self._global_step = int(state["global_step"])
         if same_kind:
             self.generator.set_state(gen_state)
@@ -428,7 +713,24 @@ class Executor:
         return paired
 
     def close(self):
-        """Release this executor's device memory (its params and optimizer
-        state); the executor cannot run afterwards."""
+        """Release this executor's device memory (its params, optimizer
+        state, feed buffers and captured graphs); the executor cannot run
+        afterwards."""
+        for sub in self.subexecutor.values():
+            sub._drop()
+            sub._sigs = {}
         self.params = {}
         self.opt_state = {}
+
+
+def _assign(store, key, value):
+    """``store[key] = value`` by a copy into the tensor already there when
+    it has ``value``'s shape, dtype and device (a captured step keeps
+    reading it), else by rebinding (the next step captures anew)."""
+    cur = store.get(key)
+    if (cur is not None and cur.shape == value.shape
+            and cur.dtype == value.dtype and cur.device == value.device):
+        with torch.no_grad():
+            cur.copy_(value)
+    else:
+        store[key] = value

@@ -1,8 +1,9 @@
-"""Graph evaluation: walk an op DAG eagerly on tensors.
+"""Graph evaluation: walk an op DAG on tensors.
 
 Counterpart of ``hetu_tpu/graph/trace.py``.  The JAX package traces the
-topo order once into one XLA program; here the same walk runs eagerly,
-each op dispatching its PyTorch ops (or hand-written kernels) in turn.
+topo order once into one XLA program; here the same walk runs op by op,
+each op dispatching its PyTorch ops (or hand-written kernels) in turn,
+eagerly or, on the card, under CUDA graph capture (graph/executor.py).
 The JAX primal-fusion pass has no counterpart: the forward runs once with
 autograd recording it, and a gradient bundle differentiates that forward
 (graph/autodiff.py).  The remat pass arrives with slice A3.
@@ -24,10 +25,14 @@ class TraceContext:
       random numbers take them from it, so a run is reproducible from the
       executor's seed.
     * ``record_update(var, value)`` — stateful ops register new values for
-      VariableOps; the executor writes them back into its ``params``.
-    * ``opt_state`` / ``new_opt_state`` — {optimizer_op_name: state} read
-      and written by optimizer ops; the executor keeps the state between
-      steps.
+      VariableOps; ``record_decrement(var, d)`` registers ``var - d``
+      (an optimizer's step).  Once the walk is done the executor writes
+      them into its ``params`` in place, so every op of the step reads
+      the old values.
+    * ``opt_state`` — {optimizer_op_name: state}, the executor's; the
+      optimizer ops update it in place.
+    * ``op`` — the op being evaluated (a failed CUDA graph capture names
+      it).
     * ``master_params`` — with a ``compute_dtype``, the executor's
       full-precision {var_name: value}, which optimizers update instead of
       the cast working values bound in the env.
@@ -44,9 +49,10 @@ class TraceContext:
         self.training = training
         self.mesh = mesh
         self.cp_impl = cp_impl
-        self.updates = {}        # VariableOp -> new value
-        self.opt_state = {}      # {optimizer_op_name: state} (input)
-        self.new_opt_state = {}  # {optimizer_op_name: state} (output)
+        self.updates = {}     # VariableOp -> new value
+        self.decrements = {}  # VariableOp -> d, the new value var - d
+        self.opt_state = {}   # {optimizer_op_name: state}
+        self.op = None
         self.master_params = master_params
         # gradient bundle -> keep the autograd graph after its backward
         # (another bundle of the same step differentiates it again)
@@ -60,6 +66,9 @@ class TraceContext:
 
     def record_update(self, var: VariableOp, value):
         self.updates[var] = value
+
+    def record_decrement(self, var: VariableOp, d):
+        self.decrements[var] = d
 
 
 def evaluate(eval_nodes, bindings, ctx: TraceContext, topo=None):
@@ -95,6 +104,7 @@ def evaluate(eval_nodes, bindings, ctx: TraceContext, topo=None):
             continue
         if isinstance(node, (PlaceholderOp, VariableOp)):
             raise RuntimeError(f"{node} reached evaluation without a binding")
+        ctx.op = node
         if hasattr(node, "_compute_with_env"):
             env[node] = node._compute_with_env(env, ctx)
         else:

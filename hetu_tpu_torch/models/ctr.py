@@ -65,10 +65,10 @@ class SparseFeatureEmbedding:
         return embedding_lookup_op(self.table, ids)  # [B, F, D]
 
     def host_table(self, params):
-        """Standard [num_rows, dim] numpy view of the table from an
-        executor's params (unpacks the packed layout; a table on the card
-        is copied to the host first)."""
-        w = params[self.table.name].detach().cpu().numpy()
+        """Standard [num_rows, dim] numpy copy of the table from an
+        executor's params (unpacks the packed layout); the executor's
+        steps update the table in place and leave the copy as it was."""
+        w = params[self.table.name].detach().to("cpu", copy=True).numpy()
         if not self.packed:
             return w
         return w.reshape(-1, self.dim)[:self.num_embeddings]
@@ -76,13 +76,18 @@ class SparseFeatureEmbedding:
     def load_rows(self, params, weights):
         """Install standard [num_rows, dim] weights into an executor's
         params, on the device of the table they replace (packed when the
-        table is packed)."""
+        table is packed), written into that table when it has their shape
+        (a captured step keeps reading it)."""
         old = params.get(self.table.name)
         w = torch.as_tensor(np.asarray(weights, np.float32))
         if self.packed:
             w = pack_table(w)
-        params[self.table.name] = w.to(
-            old.device if old is not None else "cpu")
+        if old is not None and old.shape == w.shape and old.dtype == w.dtype:
+            with torch.no_grad():
+                old.copy_(w)
+        else:
+            params[self.table.name] = w.to(
+                old.device if old is not None else "cpu")
 
 
 class WDL:

@@ -9,12 +9,46 @@ F, and the parameter-server path with slice B2 (ROADMAP.md).
 
 from __future__ import annotations
 
+import torch
+
 from ..graph.node import Op
 from .base import simple_op, _peek_id
 
 
+# tables of at most this many rows take one masked sum a row in the
+# backward (BERT's 2 token types: 16,384 ids a row, which index_put_ sums
+# one after another)
+_FEW_ROWS = 16
+
+
+class _RowLookup(torch.autograd.Function):
+    """``table[ids]`` for flat int64 ids, whose backward sums each row's
+    gradients in a fixed order, so a step's bits repeat:
+    ``index_put_(accumulate=True)`` (on the card it sorts the ids), or for
+    a table of few rows one masked sum a row.  ``index_select``'s backward
+    (``index_add_``), and ``embedding``'s for f32, add with float atomics,
+    in another order at every run (so measured on the H100)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return table.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        if ctx.rows <= _FEW_ROWS:
+            zero = g.new_zeros(())
+            ids = ids.reshape((-1,) + (1,) * (g.dim() - 1))
+            return torch.stack([torch.where(ids == r, g, zero).sum(0)
+                                for r in range(ctx.rows)]), None
+        grad = g.new_zeros((ctx.rows,) + tuple(g.shape[1:]))
+        return grad.index_put_((ids,), g, accumulate=True), None
+
+
 def _embedding_lookup(table, ids):
-    rows = table.index_select(0, ids.reshape(-1).long())
+    rows = _RowLookup.apply(table, ids.reshape(-1).long())
     return rows.reshape(tuple(ids.shape) + tuple(table.shape[1:]))
 
 

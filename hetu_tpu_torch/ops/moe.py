@@ -330,7 +330,7 @@ def balance_assignment(scores, capacity=None):
     cap = capacity or (T + E - 1) // E
     load = torch.zeros((E,), dtype=torch.int32, device=scores.device)
     out = torch.zeros((T,), dtype=torch.int32, device=scores.device)
-    full = torch.tensor(torch.inf, dtype=scores.dtype, device=scores.device)
+    full = scores.new_full((), torch.inf)
     for t in range(T):
         e = torch.argmax(scores[t] - torch.where(load >= cap, full, 0.0))
         load[e] += 1

@@ -56,9 +56,12 @@ class MultiStepScheduler(LRScheduler):
         self.gamma = gamma
 
     def get(self, step):
+        # the milestones passed, counted on the step's device (a host
+        # tensor of milestones would be copied in at every step)
         step = torch.as_tensor(step)
-        ms = torch.as_tensor(self.milestones, device=step.device)
-        n = (step >= ms).sum().float()
+        n = torch.zeros((), device=step.device)
+        for m in self.milestones:
+            n = n + (step >= m).float()
         return self.learning_rate * torch.pow(self.gamma, n)
 
 
