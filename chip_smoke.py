@@ -147,6 +147,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import os
 import subprocess
 import sys
@@ -1025,15 +1026,24 @@ def build_bert(ht, models, B, S, L, dropout=0.1):
     return models.BertForPreTraining(cfg).loss(*feeds)
 
 
+def zipf_tokens(rng, V, shape, s=1.05):
+    """Token ids whose frequencies follow Zipf's law (exponent ``s``) over
+    a vocabulary of ``V``, as a text's words do; the ranks are given to
+    ids at random."""
+    p = np.arange(1, V + 1, dtype=np.float64) ** -s
+    return rng.permutation(V)[rng.choice(V, size=shape, p=p / p.sum())]
+
+
 def bert_batch(rng, B, S, device):
-    """A pretraining batch: random ids, ~15% MLM positions, padding."""
+    """A pretraining batch: Zipf-distributed tokens, lengths S/2..S with
+    [PAD] (id 0) after each (a quarter of the ids), ~15% MLM positions."""
     V = 30522
     lengths = rng.integers(S // 2, S + 1, B)
     am = (np.arange(S)[None, :] < lengths[:, None]).astype(np.float32)
     mlm = np.full(B * S, -1, np.int64)
     pos = (rng.random(B * S) < 0.15) & (am.reshape(-1) > 0)
-    mlm[pos] = rng.integers(0, V, pos.sum())
-    arrays = {"input_ids": rng.integers(0, V, (B, S)),
+    mlm[pos] = zipf_tokens(rng, V, pos.sum())
+    arrays = {"input_ids": np.where(am > 0, zipf_tokens(rng, V, (B, S)), 0),
               "token_type_ids": (np.arange(S)[None, :]
                                  >= (lengths[:, None] // 2)).astype(np.int64),
               "attention_mask": am, "mlm_labels": mlm,
@@ -1163,21 +1173,58 @@ def run_path(label, step, fns, steps, B, expect, warmup=3, unit="samples"):
     return losses, ms, launches
 
 
-def profile_steps(label, step, steps=2, top=12):
+# the CUDA functions of the counters checked against a trace
+# (``traced_launches``): each flash route's kernel, and the other kernels
+TRACED = {**{name: re.compile(rf"\b{name}\b") for name in ROUTES},
+          "softmax_ce_fwd": re.compile(r"\b_ce_fwd_kernel\b"),
+          "softmax_ce_bwd": re.compile(r"\b_ce_bwd_kernel\b"),
+          "pack_write": re.compile(r"\bpack_write_kernel\b"),
+          "row_gather": re.compile(r"\brow_gather_kernel\b")}
+
+
+def traced_launches(kernels, counted):
+    """The launches of each checked kernel in a trace's ``kernels`` beside
+    the counters' ``counted`` over the same window: {name: (traced,
+    counted)} for every kernel either saw.  The entry points' counters
+    (``flash_attention_fwd`` and the block forward, dQ, dK/dV) launch the
+    same CUDA functions, so each pair is held to the sum of its routes'
+    kernels."""
+    traced = {name: sum(e.count for e in kernels if pat.search(e.key))
+              for name, pat in TRACED.items()}
+    for part in ("fwd", "bwd_dq", "bwd_dkv"):
+        traced[f"flash_attention_{part} + block"] = sum(
+            traced[r] for r in ROUTES if r.startswith(f"flash_{part}_"))
+        counted = dict(counted, **{
+            f"flash_attention_{part} + block":
+                counted[f"flash_attention_{part}"]
+                + counted[f"flash_attention_block_{part}"]})
+    return {name: (n, counted.get(name, 0)) for name, n in traced.items()
+            if n or counted.get(name, 0)}
+
+
+def profile_steps(label, step, steps=2, top=12, fns=None):
     """Where a path's step time goes: device time by kernel under
     torch.profiler (the kernels of a replayed CUDA graph each show), and
-    the device's idle share of the traced window.  Returns {"wall_ms",
-    "busy_ms", "idle", "launches"} a step (None if the profiler saw no
-    device time); ``top=0`` logs the totals only."""
+    the device's idle share of the traced window, whose wall time CUDA
+    events take.  Returns {"wall_ms", "busy_ms", "idle", "launches"} a
+    step (None if the profiler saw no device time), and with the launch
+    counters ``fns`` (zeroed just before the window, read just after)
+    "kernels": ``traced_launches`` of the window; ``top=0`` logs the
+    totals only."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    for fn in (fns or {}).values():
+        fn.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        start.record()
         for _ in range(steps):
             step()
+        end.record()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    wall_us = start.elapsed_time(end) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
@@ -1187,10 +1234,14 @@ def profile_steps(label, step, steps=2, top=12):
     out = {"wall_ms": wall_us / steps / 1e3, "busy_ms": busy_us / steps / 1e3,
            "idle": max(0.0, 1 - busy_us / wall_us),
            "launches": sum(e.count for e in kernels) // steps}
+    if fns:
+        out["kernels"] = traced_launches(
+            kernels, {name: fn.launches for name, fn in fns.items()})
     log(f"profile {label}: {steps} steps, {out['wall_ms']:.3f} "
-        f"ms/step wall (traced), device busy {out['busy_ms']:.3f} "
-        f"ms/step, idle share {out['idle']:.3f}, "
-        f"{out['launches']} kernel launches/step")
+        f"ms/step wall (traced, CUDA events), device busy "
+        f"{out['busy_ms']:.3f} ms/step, idle share {out['idle']:.3f}, "
+        f"{out['launches']} kernel launches/step"
+        + (f", kernels (traced, counted) {out['kernels']}" if fns else ""))
     if not top:
         return out
     # kernel classes by name: the seven kernels, the id sort, cuBLAS GEMMs,
@@ -1274,7 +1325,7 @@ def _same_bits(xs, ys):
         for x, y in zip(xs, ys))
 
 
-def capture_phase(ht, label, ex, name, feed, n=5, rs=20, turn=5):
+def capture_phase(ht, label, ex, name, feed, fns, n=5, rs=20, turn=5):
     """Phase 3f on one path's executor: its step captured in a CUDA graph
     against the same step run eagerly (``disable_capture()``).  (1) ``n``
     eager and ``n`` captured steps from the same state: the losses and the
@@ -1285,7 +1336,10 @@ def capture_phase(ht, label, ex, name, feed, n=5, rs=20, turn=5):
     captured, eager, twice), CUDA events; peak memory (eager: the most
     allocated; captured: the most allocated plus the graph pool the
     capture reserved), and traced windows of each in turns: busy time,
-    idle share, launches.  Returns the summary."""
+    idle share, launches, and each hand-written kernel's launches in the
+    trace against the launch counters ``fns`` over the window (a replay
+    adds the counts its capture took: the trace shows that the graph
+    launched those kernels).  Returns the summary."""
     sub = ex.subexecutor[name]
     run = lambda: ex.run(name, feed_dict=feed)[0]  # noqa: E731
     torch.cuda.synchronize()
@@ -1335,30 +1389,41 @@ def capture_phase(ht, label, ex, name, feed, n=5, rs=20, turn=5):
     # traced windows of ~200 ms of captured steps (a sub-ms step's trace
     # is mostly the profiler's own start and stop), in turns (eager,
     # captured, captured, eager); a window with under 90% of the most
-    # launches seen is traced again, up to 3 times: the profiler now and
+    # launches seen, or whose kernels' traced launches differ from the
+    # counted ones, is traced again, up to 3 times: the profiler now and
     # then drops a window's device records (a third of them, once)
     n_prof = max(1, min(20, round(200 / min(modes["captured"]["turns"]))))
-    traces, most = {"eager": [], "captured": []}, 0
+    traces, most, unmatched = {"eager": [], "captured": []}, 0, []
     for mode in ("eager", "captured", "captured", "eager"):
         for attempt in range(3):
             with (ht.disable_capture() if mode == "eager"
                   else contextlib.nullcontext()):
                 t = profile_steps(f"{label} {mode}", run, steps=n_prof,
-                                  top=0)
-            if t and t["launches"] >= 0.9 * most:
+                                  top=0, fns=fns)
+            bad = {k: v for k, v in (t or {}).get("kernels", {}).items()
+                   if v[0] != v[1]}
+            if t and t["launches"] >= 0.9 * most and not bad:
                 break
             log(f"capture {label}: a traced {mode} window shows "
-                f"{t and t['launches']} launches a step of {most}; traced "
-                f"again ({attempt + 1} of 3)")
+                f"{t and t['launches']} launches a step of {most}, kernels "
+                f"(traced, counted) differing: {bad}; traced again "
+                f"({attempt + 1} of 3)")
+        if t is None or bad or not t["kernels"]:
+            unmatched.append((mode, bad if t else "no trace"))
         if t:
             most = max(most, t["launches"])
             traces[mode].append(t)
+    require(f"{label}: each traced window's launches of the hand-written "
+            "kernels equal the launch counters over it (eager and captured "
+            "windows, 2 each)" + (f" (not: {unmatched})" if unmatched else ""),
+            not unmatched)
     for mode, ts in traces.items():
         ts = [t for t in ts if t["launches"] >= 0.9 * most]
         if ts:
             modes[mode].update({k: sum(t[k] for t in ts) / len(ts)
-                                for k in ("busy_ms", "idle")},
+                                for k in ("busy_ms", "idle", "wall_ms")},
                                launches=ts[0]["launches"],
+                               kernels=ts[0]["kernels"],
                                busy_turns=[t["busy_ms"] for t in ts])
     out = {"path": label, "bitwise": same, "run_steps_bitwise": same_rs,
            "graph_pool_gib": pool / 2**30, "signatures": len(sub._sigs)}
@@ -1366,14 +1431,17 @@ def capture_phase(ht, label, ex, name, feed, n=5, rs=20, turn=5):
         out[mode] = {"ms_per_step": sum(m["turns"]) / len(m["turns"]),
                      "turns_ms": m["turns"], "peak_gib": m["peak"] / 2**30,
                      **{k: m[k] for k in ("busy_ms", "busy_turns", "idle",
-                                          "launches") if k in m}}
+                                          "wall_ms", "launches", "kernels")
+                        if k in m}}
     e, c = out["eager"], out["captured"]
     log(f"capture {label}: eager {e['ms_per_step']:.3f} ms/step, captured "
         f"{c['ms_per_step']:.3f} (turns of {turn}: eager "
         + " ".join(f"{t:.3f}" for t in e["turns_ms"]) + ", captured "
         + " ".join(f"{t:.3f}" for t in c["turns_ms"])
         + f"); busy {e.get('busy_ms', 0):.3f} / {c.get('busy_ms', 0):.3f} "
-        f"ms, idle {e.get('idle', 0):.3f} / {c.get('idle', 0):.3f}, "
+        f"ms, traced wall (CUDA events) {e.get('wall_ms', 0):.3f} / "
+        f"{c.get('wall_ms', 0):.3f} ms, idle {e.get('idle', 0):.3f} / "
+        f"{c.get('idle', 0):.3f}, "
         f"launches {e.get('launches')} / {c.get('launches')} a step (busy "
         f"in turns: eager {e.get('busy_turns')}, captured "
         f"{c.get('busy_turns')}); peak "
@@ -1699,7 +1767,7 @@ def ctr_paths(ht, models, fns, rng, steps, seed, captures):
                                    expect_launches(pack_write=steps))
         out[rows] = ms, launches
         profile_steps(label, step, steps=2)
-        captures.append(capture_phase(ht, label, ex, "train", feed))
+        captures.append(capture_phase(ht, label, ex, "train", feed, fns))
         # a step writes the params and the optimizer state in place:
         # checksums of each, before and after the predict runs (the first
         # eager, the second captured)
@@ -1990,7 +2058,7 @@ def moe_paths(ht, layers, fns, rng, steps, seed, captures):
         f"{tokens * 1000.0 / ms:.1f} ({ms:.3f} ms/step, "
         f"{launches['row_gather'] / steps:g} row_gather launches/step)")
     profile_steps(label, step, steps=1)
-    captures.append(capture_phase(ht, label, ex, "train", feed))
+    captures.append(capture_phase(ht, label, ex, "train", feed, fns))
     ex.close()
     del ex, step, feed
     # the same 3 steps twice from the same params (the seed's init): the
@@ -2021,7 +2089,7 @@ def moe_paths(ht, layers, fns, rng, steps, seed, captures):
     run_path("mixtral moe layer", step, fns, 3, mx["B"] * mx["S"],
              expect_launches(row_gather=9), warmup=2, unit="tokens")
     captures.append(capture_phase(ht, "mixtral moe layer", ex, "train",
-                                  feed, n=3, turn=2))
+                                  feed, fns, n=3, turn=2))
     ex.close()
     del ex, step, feed
     free_memory("after the mixtral moe layer")
@@ -2238,9 +2306,10 @@ def build_llama(ht, models, c):
 
 def llama_executor(ht, models, rng, c, seed, mesh):
     """``Executor({"train": [loss, AdamW(1e-4, wd 0.01).minimize(loss)]},
-    mesh=mesh, compute_dtype=bfloat16)`` on the card, bench_llama's feed
-    (ids, and the ids rolled by one as labels) and a step returning the
-    loss: (ex, step, init seconds, feed)."""
+    mesh=mesh, compute_dtype=bfloat16)`` on the card, a feed of
+    Zipf-distributed ids (``zipf_tokens``; the ids rolled by one as
+    labels) and a step returning the loss: (ex, step, init seconds,
+    feed)."""
     with ht.name_scope():
         loss, ids, labels = build_llama(ht, models, c)
         train_op = ht.AdamWOptimizer(learning_rate=1e-4,
@@ -2250,7 +2319,7 @@ def llama_executor(ht, models, rng, c, seed, mesh):
                      mesh=mesh, compute_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    ids_v = rng.integers(0, c["V"], (c["B"], c["S"]))
+    ids_v = zipf_tokens(rng, c["V"], (c["B"], c["S"]))
     feed = {ids: torch.from_numpy(ids_v.astype(np.int32)).cuda(),
             labels: torch.from_numpy(np.roll(ids_v, -1, 1).astype(
                 np.int32)).cuda()}
@@ -2332,7 +2401,7 @@ def llama_paths(ht, models, ht_parallel, fns, rng, steps, seed, captures):
         out[label] = (ms, p["launches"], losses[0])
     for label, p in paths.items():
         captures.append(capture_phase(ht, label, p["ex"], "train",
-                                      p["feed"]))
+                                      p["feed"], fns))
     for p in paths.values():
         p["ex"].close()
     del paths, p
@@ -2364,7 +2433,7 @@ def llama_paths(ht, models, ht_parallel, fns, rng, steps, seed, captures):
                         softmax_ce_bwd=3), warmup=2, unit="tokens")
     profile_steps("mistral-width witness", step, steps=1)
     captures.append(capture_phase(ht, "mistral-width witness", ex, "train",
-                                  feed, n=3, turn=2))
+                                  feed, fns, n=3, turn=2))
     out["mistral-width witness"] = (ms_w, None, None)
     ex.close()
     del ex, step, feed
@@ -2694,7 +2763,7 @@ def main():
         log(f"FAILED: {failures}")
         return 1
     profile_steps("eval path", eval_step)
-    captures = [capture_phase(ht, "eval path", ex, "validate", feed)]
+    captures = [capture_phase(ht, "eval path", ex, "validate", feed, fns)]
     ex.close()  # frees params now: the executor is in a reference cycle
     del ex, eval_step
     free_memory("after the eval path")
@@ -2725,7 +2794,7 @@ def main():
         log(f"FAILED: {failures}")
         return 1
     profile_steps("train path", train_step, steps=1)
-    captures.append(capture_phase(ht, "train path", ex, "train", feed))
+    captures.append(capture_phase(ht, "train path", ex, "train", feed, fns))
     ex.close()
     del ex, feed, train_step
     free_memory("after the train path")

@@ -15,19 +15,54 @@ from ..graph.node import Op
 from .base import simple_op, _peek_id
 
 
-# tables of at most this many rows take one masked sum a row in the
-# backward (BERT's 2 token types: 16,384 ids a row, which index_put_ sums
-# one after another)
-_FEW_ROWS = 16
+# positions a block of ``_run_sums`` scans at each level
+_BLOCK = 8
+
+
+def _scan(x, keys):
+    """Inclusive sums over runs of equal sorted ``keys`` along dim -2 of
+    ``x`` [..., W, D] (keys [..., W]): Hillis-Steele steps, position i
+    adding position i - 1, 2, 4, ... while its key is the same."""
+    w, off = x.shape[-2], 1
+    while off < w:
+        same = (keys[..., off:] == keys[..., :-off]).unsqueeze(-1)
+        x = torch.cat([x[..., :off, :], x[..., off:, :] + torch.where(
+            same, x[..., :-off, :], x.new_zeros(()))], dim=-2)
+        off *= 2
+    return x
+
+
+def _run_sums(x, keys):
+    """out[i] = the sum of x[j] [N, D] over the positions j <= i of i's run
+    of equal sorted ``keys`` [N], in a fixed order whatever the ids: each
+    block of ``_BLOCK`` positions is scanned, the blocks' last sums are
+    summed the same way one level up, and each block adds the sum its run
+    carried in from the blocks before it."""
+    n = x.shape[0]
+    if n <= _BLOCK:
+        return _scan(x, keys)
+    pad = -n % _BLOCK
+    if pad:  # a key above every id ends the last run
+        x = torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+        keys = torch.cat([keys, keys[-1:].add(1).expand(pad)])
+    xb = _scan(x.view(-1, _BLOCK, x.shape[1]), keys.view(-1, _BLOCK))
+    kb = keys.view(-1, _BLOCK)
+    carry = _run_sums(xb[:, -1], kb[:, -1])  # through the end of each block
+    xb[1:] += torch.where((kb[1:] == kb[:-1, -1:]).unsqueeze(-1),
+                          carry[:-1].unsqueeze(1), x.new_zeros(()))
+    return xb.view(-1, x.shape[1])[:n]
 
 
 class _RowLookup(torch.autograd.Function):
     """``table[ids]`` for flat int64 ids, whose backward sums each row's
-    gradients in a fixed order, so a step's bits repeat:
-    ``index_put_(accumulate=True)`` (on the card it sorts the ids), or for
-    a table of few rows one masked sum a row.  ``index_select``'s backward
-    (``index_add_``), and ``embedding``'s for f32, add with float atomics,
-    in another order at every run (so measured on the H100)."""
+    gradients in one fixed order, so that a step's bits repeat whatever the
+    ids: the ids sorted, each run of equal ids summed by ``_run_sums`` (a
+    tree of depth log2 of its length, as ``pack_write`` sums the packed
+    table's runs), and each row given its run's sum.  ``index_select``'s
+    backward (``index_add_``) adds with float atomics, in another order at
+    every run; ``index_put_(accumulate=True)`` sums a run one id after
+    another, which a row as common as BERT's [PAD] (a quarter of a batch's
+    ids) or a token type makes slow."""
 
     @staticmethod
     def forward(ctx, table, ids):
@@ -38,13 +73,16 @@ class _RowLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        if ctx.rows <= _FEW_ROWS:
-            zero = g.new_zeros(())
-            ids = ids.reshape((-1,) + (1,) * (g.dim() - 1))
-            return torch.stack([torch.where(ids == r, g, zero).sum(0)
-                                for r in range(ctx.rows)]), None
-        grad = g.new_zeros((ctx.rows,) + tuple(g.shape[1:]))
-        return grad.index_put_((ids,), g, accumulate=True), None
+        shape = (ctx.rows,) + tuple(g.shape[1:])
+        if not len(ids):
+            return g.new_zeros(shape), None
+        keys, order = torch.sort(ids, stable=True)
+        sums = _run_sums(g.reshape(len(ids), -1).index_select(0, order),
+                         keys)
+        rows = torch.arange(ctx.rows, device=ids.device)
+        last = (torch.searchsorted(keys, rows, right=True) - 1).clamp_(min=0)
+        hit = (keys[last] == rows).unsqueeze(-1)
+        return torch.where(hit, sums[last], g.new_zeros(())).view(shape), None
 
 
 def _embedding_lookup(table, ids):

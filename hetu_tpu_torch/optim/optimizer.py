@@ -6,19 +6,19 @@ the gradients, the parameters (the executor's full-precision masters under
 a ``compute_dtype``) and its state from the trace context, and records new
 parameter values and state.  The update rules are the JAX package's,
 written in plain PyTorch ops: the JAX package has no kernel here, XLA fuses
-its jnp.  ``apply_dense`` is functional (new tensors), as in JAX; the
-``OptimizerOp`` runs ``apply_dense_``, which writes the moments into the
-slot tensors the executor keeps and returns the parameter's step ``d``, so
-that the executor writes ``param - d`` into the parameter in place once the
+its jnp.  A rule is ``apply_dense_``: it writes the new moments into the
+slot tensors the executor keeps and returns the parameter's step ``d``,
+and the executor writes ``param - d`` into the parameter in place once the
 step's walk is done (an op later in the walk still reads the old value, as
 in JAX).  The executor's tensors therefore keep their storage from step to
 step, as a captured CUDA graph needs, and no update copies a new tensor
-back (the packed W&D table is 2.16 GB at Criteo's 33.76M rows).  Both
-forms round as the JAX formula does operation by operation:
-``m.mul_(b1)`` gives the bits of ``b1 * m``, ``param.sub_(d)`` those of
-``param - d``.  Adam's update writes each full-size result into a new
-tensor and finishes it in place, so that at most one temporary of a
-parameter's size lives beside the parameter, its gradient and the moments.
+back (the packed W&D table is 2.16 GB at Criteo's 33.76M rows).  It rounds
+as the JAX formula does operation by operation: ``m.mul_(b1)`` gives the
+bits of ``b1 * m``, ``param.sub_(d)`` those of ``param - d``.
+``apply_dense`` is the functional form (new tensors, as in JAX), made from
+it.  Adam's update writes each full-size result into a new tensor and
+finishes it in place, so that at most one temporary of a parameter's size
+lives beside the parameter, its gradient and the moments.
 
 Lazy sparse updates (``sparse_vars``, ``apply_sparse``) are slice B2 of the
 port; SGD, Momentum, AdaGrad, AMSGrad and Lamb are slice A3 (ROADMAP.md).
@@ -49,8 +49,17 @@ class Optimizer:
     def init_slots(self, param):
         return {name: torch.zeros_like(param) for name in self.slot_names}
 
-    def apply_dense(self, param, grad, slots, lr, step):
+    def apply_dense_(self, param, grad, slots, lr, step):
+        """The update rule: writes the new slots into ``slots`` and returns
+        ``d``, the new parameter being ``param - d``."""
         raise NotImplementedError
+
+    def apply_dense(self, param, grad, slots, lr, step):
+        """The functional form, as in JAX: (new param, new slots), the
+        given slots left as they were."""
+        slots = {k: t.clone() for k, t in slots.items()}
+        d = self.apply_dense_(param, grad, slots, lr, step)
+        return d.neg_().add_(param), slots
 
     def apply_sparse(self, param, ids, grad_rows, slots, lr, step):
         raise NotImplementedError(_SPARSE)
@@ -88,38 +97,25 @@ class AdamOptimizer(Optimizer):
         super().__init__(learning_rate, l2reg)
         self.beta1, self.beta2, self.eps = beta1, beta2, eps
 
-    def _moments(self, grad, slots, step, inplace=False):
-        """(m, v, mhat, the denominator sqrt(vhat) + eps): m and v new
-        tensors, or the slots themselves updated ``inplace``; the bias
-        correction from the f32 step counter, as in JAX."""
+    def _moments(self, grad, slots, step):
+        """(mhat, the denominator sqrt(vhat) + eps), each a new tensor,
+        with the slots m and v updated in place; the bias correction from
+        the f32 step counter, as in JAX."""
         t = step.float() + 1.0
-        m, v = slots["m"], slots["v"]
-        if inplace:
-            m, v = m.mul_(self.beta1), v.mul_(self.beta2)
-        else:
-            m, v = torch.mul(m, self.beta1), torch.mul(v, self.beta2)
         # b1 * m + (1 - b1) * g and b2 * v + ((1 - b2) * g) * g
-        m.add_(torch.mul(grad, 1.0 - self.beta1))
-        v.add_(torch.mul(grad, 1.0 - self.beta2).mul_(grad))
+        m = slots["m"].mul_(self.beta1).add_(
+            torch.mul(grad, 1.0 - self.beta1))
+        v = slots["v"].mul_(self.beta2).add_(
+            torch.mul(grad, 1.0 - self.beta2).mul_(grad))
         mhat = torch.div(m, 1.0 - torch.pow(self.beta1, t))
         denom = torch.div(v, 1.0 - torch.pow(self.beta2, t)).sqrt_().add_(
             self.eps)
-        return m, v, mhat, denom
-
-    def _step(self, param, grad, slots, lr, step, inplace):
-        grad = self._regularized(param, grad)
-        m, v, update, denom = self._moments(grad, slots, step, inplace)
-        update.mul_(lr).div_(denom)  # lr * mhat / denom
-        return update, m, v
-
-    def apply_dense(self, param, grad, slots, lr, step):
-        update, m, v = self._step(param, grad, slots, lr, step, False)
-        return update.neg_().add_(param), {"m": m, "v": v}
+        return mhat, denom
 
     def apply_dense_(self, param, grad, slots, lr, step):
-        """The update with the slots written in place: returns ``d``, the
-        new parameter being ``param - d``."""
-        return self._step(param, grad, slots, lr, step, True)[0]
+        grad = self._regularized(param, grad)
+        update, denom = self._moments(grad, slots, step)
+        return update.mul_(lr).div_(denom)  # lr * mhat / denom
 
 
 class AdamWOptimizer(AdamOptimizer):
@@ -128,13 +124,12 @@ class AdamWOptimizer(AdamOptimizer):
         super().__init__(learning_rate, beta1, beta2, eps)
         self.weight_decay = weight_decay
 
-    def _step(self, param, grad, slots, lr, step, inplace):
-        m, v, update, denom = self._moments(grad, slots, step, inplace)
+    def apply_dense_(self, param, grad, slots, lr, step):
+        update, denom = self._moments(grad, slots, step)
         update.div_(denom)
         del denom
         # lr * (mhat / denom + wd * param)
-        update.add_(torch.mul(param, self.weight_decay)).mul_(lr)
-        return update, m, v
+        return update.add_(torch.mul(param, self.weight_decay)).mul_(lr)
 
 
 class OptimizerOp(Op):
@@ -144,9 +139,7 @@ class OptimizerOp(Op):
     parameters (masters under a compute dtype) and its state from the
     TraceContext.  It updates its state in place (the slots through
     ``apply_dense_``, then the step counter) and records each parameter's
-    step with ``ctx.record_decrement``; an optimizer with only a
-    functional ``apply_dense`` has its slots copied in and its new
-    parameters recorded with ``ctx.record_update``.  Evaluates to None (the
+    step with ``ctx.record_decrement``.  Evaluates to None (the
     reference's train_op).  ``clip_global_norm`` scales every gradient by
     min(1, clip / (global L2 norm + 1e-6)), the norm summed in f32.
     """
@@ -171,17 +164,6 @@ class OptimizerOp(Op):
                 "slots": {v.name: self.optimizer.init_slots(params[v.name])
                           for v in self.var_list}}
 
-    def _inplace(self):
-        """Whether the optimizer updates in place (``apply_dense_``): not
-        when it has none, or a subclass overrides ``apply_dense`` below the
-        class that defines it (that functional rule then runs)."""
-        for cls in type(self.optimizer).__mro__:
-            if "apply_dense_" in vars(cls):
-                return True
-            if "apply_dense" in vars(cls):
-                return False
-        return False
-
     def _compute_with_env(self, env, ctx):
         state = ctx.opt_state[self.name]
         step = state["step"]
@@ -199,18 +181,9 @@ class OptimizerOp(Op):
                 scale = (self.clip_global_norm / (gnorm + 1e-6)).clamp(
                     max=1.0)
                 grads = [g * scale for g in grads]
-            inplace = self._inplace()
             for var, param, grad in zip(self.var_list, params, grads):
-                slots = state["slots"][var.name]
-                if inplace:
-                    ctx.record_decrement(var, self.optimizer.apply_dense_(
-                        param, grad, slots, lr, step))
-                    continue
-                new_p, new_slots = self.optimizer.apply_dense(
-                    param, grad, slots, lr, step)
-                for k, t in new_slots.items():
-                    slots[k].copy_(t)
-                ctx.record_update(var, new_p)
+                ctx.record_decrement(var, self.optimizer.apply_dense_(
+                    param, grad, state["slots"][var.name], lr, step))
             step.add_(1)
         return None
 

@@ -88,9 +88,9 @@ def test_clip_scales_by_the_global_norm():
     seen = {}
 
     class Probe(pt.AdamWOptimizer):
-        def apply_dense(self, param, grad, slots, lr, step):
+        def apply_dense_(self, param, grad, slots, lr, step):
             seen.setdefault("sq", []).append(float(grad.square().sum()))
-            return super().apply_dense(param, grad, slots, lr, step)
+            return super().apply_dense_(param, grad, slots, lr, step)
 
     op = popt.OptimizerOp(grads, xs, Probe(learning_rate=0.0),
                           clip_global_norm=1e-3)

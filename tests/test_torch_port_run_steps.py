@@ -329,54 +329,63 @@ def test_disable_capture_steps_equal_default_steps_on_the_cpu():
     assert _state_equal(ex1.state_dict(), ex2.state_dict())
 
 
-@pytest.mark.parametrize("n_rows", [6, 40], ids=["masked_sums", "index_put"])
-def test_row_lookup_gradient_sums_each_rows_gradients(n_rows):
-    """The row lookup's backward (a masked sum a row for a table of at
-    most 16 rows, else ``index_put_`` with accumulate: a fixed order on
-    the card either way) gives each row the sum of its gradients, as the
-    JAX package's scatter-add: rows looked up several times, once and
-    never (f32, rtol 1e-6: sums of up to 3 terms in another order)."""
+@pytest.mark.parametrize("kind", ["few_rows", "many_rows", "pad_rows",
+                                  "zipf", "two_rows"])
+def test_row_lookup_gradient_sums_each_rows_gradients(kind):
+    """The row lookup's backward (the ids sorted, each run summed in a
+    fixed tree order) gives each row the sum of its gradients, as the JAX
+    package's scatter-add: rows looked up several times, once and never
+    in a table of 6 or 40 rows (f32, rtol 1e-6: sums of up to 3 terms in
+    another order); runs many blocks long, as a batch's [PAD] id (a
+    quarter of the ids on row 0), Zipf-distributed tokens and a 2-row
+    token-type table give them (f32 against f64 sums, atol 1e-4 for up
+    to ~1,000 terms)."""
     rng = np.random.default_rng(1)
+    n, n_rows = 1500, 64
+    if kind in ("few_rows", "many_rows"):
+        n_rows = 6 if kind == "few_rows" else 40
+        ids = np.array([[0, 2, 2], [5, 2, 0]])
+    elif kind == "pad_rows":
+        ids = rng.integers(1, n_rows, n)
+        ids[rng.random(n) < 0.25] = 0
+    elif kind == "zipf":
+        ids = np.minimum(rng.zipf(1.05, n) - 1, n_rows - 1)
+    else:
+        n_rows = 2
+        ids = (np.arange(n) >= n // 3).astype(np.int64)
     table = torch.from_numpy(
         rng.standard_normal((n_rows, 3)).astype(np.float32))
-    ids = torch.tensor([[0, 2, 2], [5, 2, 0]], dtype=torch.int32)
-    g = rng.standard_normal((2, 3, 3)).astype(np.float32)
+    g = rng.standard_normal(ids.shape + (3,)).astype(np.float32)
     table.requires_grad_()
-    rows = pt.ops.embedding._embedding_lookup(table, ids)
-    assert torch.equal(rows.detach(), table.detach()[ids.long()])
+    ids_t = torch.from_numpy(ids.astype(np.int32))
+    rows = pt.ops.embedding._embedding_lookup(table, ids_t)
+    assert torch.equal(rows.detach(), table.detach()[ids_t.long()])
     (grad,) = torch.autograd.grad(rows, table, torch.from_numpy(g))
-    want = np.zeros((n_rows, 3), np.float32)
-    np.add.at(want, ids.numpy().reshape(-1), g.reshape(-1, 3))
-    np.testing.assert_allclose(grad.numpy(), want, rtol=1e-6)
-    assert not grad[[1, 3, 4]].any()
+    want = np.zeros((n_rows, 3))
+    np.add.at(want, ids.reshape(-1), g.reshape(-1, 3).astype(np.float64))
+    if kind in ("few_rows", "many_rows"):
+        np.testing.assert_allclose(grad.numpy(), want, rtol=1e-6)
+        assert not grad[[1, 3, 4]].any()
+    else:
+        np.testing.assert_allclose(grad.numpy(), want, atol=1e-4)
 
 
 def test_functional_and_in_place_updates_give_the_same_bits():
-    """Adam's in-place update (``apply_dense_``, what the optimizer op
-    runs) and its functional rule (``apply_dense``, run when a subclass
-    overrides it) give the same params and moments, bitwise."""
-    class Functional(pt.AdamWOptimizer):
-        def apply_dense(self, param, grad, slots, lr, step):
-            return super().apply_dense(param, grad, slots, lr, step)
-
-    states = []
-    for cls in (pt.AdamWOptimizer, Functional):
-        x = pt.placeholder_op("fb_x", (8, 16))
-        with pt.name_scope():
-            w = pt.Variable("fb_w", value=np.linspace(
-                -1, 1, 48, dtype=np.float32).reshape(16, 3))
-            loss = pt.reduce_mean_op(pt.tanh_op(pt.matmul_op(x, w)))
-            op = cls(1e-2, weight_decay=0.01).minimize(loss)
-        ex = pt.Executor({"train": [loss, op]}, device="cpu")
-        assert ex.subexecutor["train"].opt_ops[0]._inplace() is (
-            cls is pt.AdamWOptimizer)
-        feed = {x: np.random.default_rng(0).standard_normal(
-            (8, 16)).astype(np.float32)}
-        ex.run_steps("train", feed, 3)
-        states.append(ex.state_dict())
-    a, b = states
-    assert [np.array_equal(a["params"][k], b["params"][k])
-            for k in a["params"]] == [True] * len(a["params"])
-    (sa,), (sb,) = a["opt_state"].values(), b["opt_state"].values()
-    assert all(np.array_equal(sa["slots"][v][k], sb["slots"][v][k])
-               for v in sa["slots"] for k in sa["slots"][v])
+    """An optimizer's functional form (``apply_dense``, as in JAX: a new
+    param and new slots) and the in-place rule the optimizer op runs
+    (``apply_dense_``: the slots updated, the param's step ``d``
+    returned) give the same param and moments, bitwise; the functional
+    form leaves the slots it was given as they were."""
+    gen = torch.Generator().manual_seed(3)
+    param, grad, m, v = (torch.randn(257, generator=gen) for _ in range(4))
+    step, lr = torch.tensor(2, dtype=torch.int32), 1e-2
+    for opt in (pt.AdamOptimizer(lr, l2reg=1e-3),
+                pt.AdamWOptimizer(lr, weight_decay=0.01)):
+        slots = {"m": m.clone(), "v": v.abs()}
+        given = {k: t.clone() for k, t in slots.items()}
+        new_p, new_slots = opt.apply_dense(param, grad, slots, lr, step)
+        assert all(torch.equal(slots[k], given[k]) for k in slots)
+        d = opt.apply_dense_(param, grad, slots, lr, step)
+        assert torch.equal(param - d, new_p)
+        assert all(torch.equal(slots[k], new_slots[k]) for k in slots)
+        assert not torch.equal(slots["m"], given["m"])
