@@ -101,9 +101,9 @@ Phases, each fatal on failure (exit 1, no result lines):
       Then 2 of Mistral-7B's 32 layers at its published widths (hidden
       4096, 32 heads, 8 KV heads, FFN 14336) at B=1 S=8192 under cp=4: 2
       warm-up and 3 timed steps.
-   f. Each path above (BERT eval and train, W&D at both sizes, bench_moe
-      and the Mixtral layer, Llama cp=4 and mesh-less, the witness), on
-      its executor: 5 steps under ``disable_capture()`` and 5 captured
+   f. Each path (BERT eval and train, W&D at both sizes, bench_moe and
+      the Mixtral layer, Llama cp=4 and mesh-less, the witness, and g's
+      ResNet-18), on its executor: 5 steps under ``disable_capture()`` and 5 captured
       steps from the same state (3 each for the Mixtral layer and the
       witness) must give bitwise equal losses and checkpoints (params,
       optimizer steps and slots, generator state, step count);
@@ -113,6 +113,20 @@ Phases, each fatal on failure (exit 1, no result lines):
       memory (captured: allocated plus the graph pool), and traced
       windows of each in turns: busy time, idle share, launches.  A ``{"capture":
       [...]}`` line before the kernels' line sums them up.
+   g. bench_resnet's ResNet-18 (BASELINE config 1): ``resnet18(10)``, the
+      mean sparse CE, ``MomentumOptimizer(0.1, 0.9).minimize(loss)`` and
+      ``Executor({"train": [loss, train_op], "validate": [logits]})`` at
+      B=2048, 3x32x32 f32 (x normal, y uniform in [0, 10)): 3 warm-up and
+      ``--steps`` timed steps, no hand-written kernel launched (the CE at
+      10 classes is below its kernel's gate, as in JAX), every loss
+      finite, every running stat moved, then a ``validate`` run with
+      finite logits that changes no param; its breakdown (convolution
+      forward, dgrad and wgrad, reductions, elementwise) and phase f.
+      Then ``channels_last=True`` against NCHW from the same weights (one
+      step compared, then ms/step of both captured, in turns), and the
+      step's convolutions timed under the port's deterministic cuDNN
+      choice and under cuDNN's default, in turns, beside their FLOPs and
+      f32 bound.
    Each path's step is broken down by kernel class under torch.profiler.
    Then each kernel is timed at the paths' shapes beside its bound, its
    plain version and one PyTorch library call (a yardstick only; the port
@@ -122,10 +136,11 @@ Phases, each fatal on failure (exit 1, no result lines):
    ``row_gather``'s step also against ``index_select`` in alternating
    turns.  Then one f32 training step of BERT (batch 2, 2 layers,
    full widths, dropout off), one of W&D (337,000 rows), one of a small
-   MoE layer (H=128, F=256, 4 experts, 64 tokens) and one of a small
+   MoE layer (H=128, F=256, 4 experts, 64 tokens), one of a small
    Llama under cp=4 (2 layers, hidden 256, 4 heads, 2 KV heads, S=1024)
-   run from the same params on the card (kernels) and on the CPU (plain
-   versions): loss, every gradient and every updated param are compared.
+   and one of ResNet-18 at B=8 run from the same params on the card
+   (kernels, cuDNN) and on the CPU (plain versions): loss, every gradient
+   and every updated param (ResNet's running stats too) are compared.
    The blockwise kernels are timed at the witness's block shape, q
    [1,32,2048,128] bf16, for the full, diagonal and empty blocks, beside
    scaled_dot_product_attention (the yardstick) and its backward; the
@@ -174,6 +189,17 @@ MOE = dict(B=8, S=1024, H=512, F=2048, E=8, k=2, cf=1.25, act="gelu")
 # the MoE layer of the Mixtral-8x7B config (hetu_tpu/models/llama.py:85-88,
 # 129-134): hidden 4096, FFN 14336, 8 swiglu experts, top-2, capacity 4.0
 MIXTRAL = dict(B=1, S=2048, H=4096, F=14336, E=8, k=2, cf=4.0, act="swiglu")
+# bench_resnet (bench.py:407-461, BASELINE config 1): ResNet-18 on CIFAR-10
+# shapes, f32, Momentum(0.1, 0.9)
+RESNET = dict(B=2048, C=3, HW=32, classes=10, lr=0.1, momentum=0.9)
+# ResNet-18's convolutions on 32x32 inputs: (C_in, C_out, kernel, stride,
+# input H = W, count); the stem's input needs no gradient
+RESNET_CONVS = ((3, 64, 3, 1, 32, 1), (64, 64, 3, 1, 32, 4),
+                (64, 128, 3, 2, 32, 1), (128, 128, 3, 1, 16, 3),
+                (64, 128, 1, 2, 32, 1), (128, 256, 3, 2, 16, 1),
+                (256, 256, 3, 1, 8, 3), (128, 256, 1, 2, 16, 1),
+                (256, 512, 3, 2, 8, 1), (512, 512, 3, 1, 4, 3),
+                (256, 512, 1, 2, 8, 1))
 
 failures = []
 
@@ -1244,9 +1270,11 @@ def profile_steps(label, step, steps=2, top=12, fns=None):
         + (f", kernels (traced, counted) {out['kernels']}" if fns else ""))
     if not top:
         return out
-    # kernel classes by name: the seven kernels, the id sort, cuBLAS GEMMs,
-    # reductions (layer-norm moments, means, sums), copies and casts, other
-    # elementwise
+    # kernel classes by name: the seven kernels, the id sort, cuDNN's
+    # convolution kernels (its FFT algorithm's complex products among
+    # them), cuBLAS GEMMs (on ResNet also cuDNN's GEMM-based
+    # convolutions), reductions (layer-norm and batch-norm moments, means,
+    # sums), copies and casts, other elementwise
     # (the block kernels are the same CUDA functions as the flash ones)
     classes = (("pack_write", ("pack_write_kernel",)),
                ("row_gather", ("row_gather_kernel",)),
@@ -1256,6 +1284,10 @@ def profile_steps(label, step, steps=2, top=12, fns=None):
                ("flash dK/dV (+ block)", ("flash_bwd_dkv",)),
                ("softmax_ce_fwd", ("_ce_fwd_kernel",)),
                ("softmax_ce_bwd", ("_ce_bwd_kernel",)),
+               ("conv wgrad", ("wgrad",)),
+               ("conv dgrad", ("dgrad",)),
+               ("conv fwd", ("fprop", "convolve", "conv2d", "winograd")),
+               ("conv fft (+ its complex gemm)", ("fft2d", "cf32")),
                ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
                ("reduce", ("reduce_kernel",)),
                ("copy/cast", ("copy_kernel",)),
@@ -1325,7 +1357,8 @@ def _same_bits(xs, ys):
         for x, y in zip(xs, ys))
 
 
-def capture_phase(ht, label, ex, name, feed, fns, n=5, rs=20, turn=5):
+def capture_phase(ht, label, ex, name, feed, fns, n=5, rs=20, turn=5,
+                  kernels=True):
     """Phase 3f on one path's executor: its step captured in a CUDA graph
     against the same step run eagerly (``disable_capture()``).  (1) ``n``
     eager and ``n`` captured steps from the same state: the losses and the
@@ -1339,7 +1372,9 @@ def capture_phase(ht, label, ex, name, feed, fns, n=5, rs=20, turn=5):
     idle share, launches, and each hand-written kernel's launches in the
     trace against the launch counters ``fns`` over the window (a replay
     adds the counts its capture took: the trace shows that the graph
-    launched those kernels).  Returns the summary."""
+    launched those kernels; with ``kernels=False``, a path that launches
+    none, each window must show none and count none).  Returns the
+    summary."""
     sub = ex.subexecutor[name]
     run = lambda: ex.run(name, feed_dict=feed)[0]  # noqa: E731
     torch.cuda.synchronize()
@@ -1408,14 +1443,15 @@ def capture_phase(ht, label, ex, name, feed, fns, n=5, rs=20, turn=5):
                 f"{t and t['launches']} launches a step of {most}, kernels "
                 f"(traced, counted) differing: {bad}; traced again "
                 f"({attempt + 1} of 3)")
-        if t is None or bad or not t["kernels"]:
+        if t is None or bad or bool(t["kernels"]) != kernels:
             unmatched.append((mode, bad if t else "no trace"))
         if t:
             most = max(most, t["launches"])
             traces[mode].append(t)
     require(f"{label}: each traced window's launches of the hand-written "
             "kernels equal the launch counters over it (eager and captured "
-            "windows, 2 each)" + (f" (not: {unmatched})" if unmatched else ""),
+            "windows, 2 each" + ("" if kernels else "; none of either")
+            + ")" + (f" (not: {unmatched})" if unmatched else ""),
             not unmatched)
     for mode, ts in traces.items():
         ts = [t for t in ts if t["launches"] >= 0.9 * most]
@@ -2634,6 +2670,276 @@ def cross_device_llama(ht, models, ht_parallel, fns, rng, seed):
     ex_gpu.close()
 
 
+# -- phase 3g: ResNet-18 --------------------------------------------------
+
+def build_resnet(ht, models, B, channels_last=False):
+    """bench_resnet's graph at batch ``B``: ``resnet18(10)``, the mean
+    sparse CE, ``MomentumOptimizer(0.1, 0.9).minimize(loss)``; returns
+    ({"train": [loss, train_op], "validate": [logits]}, x, y)."""
+    r = RESNET
+    with ht.name_scope():
+        shape = ((B, r["HW"], r["HW"], r["C"]) if channels_last
+                 else (B, r["C"], r["HW"], r["HW"]))
+        x = ht.placeholder_op("rn_x", shape)
+        y = ht.placeholder_op("rn_y", (B,), dtype=np.int32)
+        logits = models.resnet18(num_classes=r["classes"],
+                                 channels_last=channels_last)(x)
+        loss = ht.reduce_mean_op(
+            ht.softmax_cross_entropy_sparse_op(logits, y))
+        train_op = ht.MomentumOptimizer(r["lr"], r["momentum"]).minimize(
+            loss)
+    return {"train": [loss, train_op], "validate": [logits]}, x, y
+
+
+def resnet_arrays(rng, B):
+    """x ~ N(0, 1) [B, 3, 32, 32] f32 and y uniform in [0, 10), as
+    bench_resnet draws them."""
+    r = RESNET
+    return (torch.from_numpy(rng.standard_normal(
+                (B, r["C"], r["HW"], r["HW"])).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, r["classes"], B).astype(
+                np.int32)))
+
+
+RELU_FLIPS = ("a ReLU's mask flips where a pre-activation lies within f32 "
+              "rounding of 0, which moves that entry's gradient by its full"
+              " size; at B=8 a layer-4 weight sums 128 positions, so one "
+              "flip moves its gradient by ~1/128 of it")
+
+
+def rel_errors(pairs):
+    """{name: |a - b| / |b|} in the 2-norm for {name: (a, b)}."""
+    return {k: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+            for k, (a, b) in pairs.items()}
+
+
+def change_checks(label, ex_a, ex_b, init, tol, why):
+    """Each param's change from ``init`` (on the CPU) in executor ``a``
+    against its change in ``b``: the trainable params' (-lr g in a first
+    Momentum step) within ``tol`` relative in the 2-norm (``why``), the
+    running stats' (a forward quantity) entry by entry within 1e-3 of
+    their size + 1e-5 of the largest."""
+    changes = {k: (ex_a.params[k].cpu() - p0, ex_b.params[k].cpu() - p0)
+               for k, p0 in init.items()}
+    errs = rel_errors({k: v for k, v in changes.items()
+                       if "_running_" not in k})
+    name = max(errs, key=errs.get)
+    require(f"{label}: each param's change in one Momentum step, worst "
+            f"{errs[name]:.3e} ({name}) in the 2-norm, relative, tol {tol:g}"
+            f" ({why})", errs[name] <= tol)
+    stats = {k: v for k, v in changes.items() if "_running_" in k}
+    scale = max(b.abs().max().item() for _, b in stats.values())
+    diff = {k: (a - b).abs() for k, (a, b) in stats.items()}
+    bad = [k for k, (a, b) in stats.items()
+           if not (diff[k] - 1e-3 * b.abs()).max().item() <= 1e-5 * scale]
+    worst = max(d.max().item() for d in diff.values())
+    require(f"{label}: the {len(stats)} running stats' change, "
+            f"max_abs_err={worst:.3e} tol=1e-5*{scale:.3e} + 1e-3*|change| "
+            "(f32 batch means and variances summed in another order)"
+            f"{' bad: ' + str(bad) if bad else ''}", not bad)
+
+
+def resnet_paths(ht, models, fns, rng, steps, seed, captures):
+    """Phase 3g: bench_resnet's training step at full size (B=2048, f32,
+    Momentum), no hand-written kernel launched (the CE at 10 classes is
+    below its kernel's gate, as in JAX), the running stats moving and a
+    ``validate`` run that changes no param; its breakdown and phase 3f's
+    captured-against-eager checks (appended to ``captures``).  Returns
+    (ms/step, launches)."""
+    r = RESNET
+    B = r["B"]
+    nodes, x, y = build_resnet(ht, models, B)
+    t0 = time.perf_counter()
+    ex = ht.Executor(nodes, device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    stats = [k for k in ex.params if "_running_" in k]
+    log(f"resnet18 path: resnet18(10) B={B} 3x32x32 f32, Momentum("
+        f"{r['lr']}, {r['momentum']}), "
+        f"{sum(v.numel() for k, v in ex.params.items() if k not in stats)} "
+        f"params and {len(stats)} running stats, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    X, Y = resnet_arrays(rng, B)
+    feed = {x: X.cuda(), y: Y.cuda()}
+    init_stats = {k: ex.params[k].clone() for k in stats}
+
+    def step():
+        val, none = ex.run("train", feed_dict=feed)
+        if none is not None:
+            raise RuntimeError("run('train') must return [loss, None]")
+        return val
+
+    label = "resnet18 path"
+    _, ms, launches = run_path(label, step, fns, steps, B, expect_launches())
+    log(f"resnet18 path: resnet18_cifar_train_samples_per_sec "
+        f"{B * 1000.0 / ms:.1f} ({ms:.3f} ms/step)")
+    moved = sum(not torch.equal(ex.params[k], init_stats[k]) for k in stats)
+    require(f"{label}: every running stat moved ({moved} of {len(stats)})",
+            moved == len(stats))
+    before = {k: v.clone() for k, v in ex.params.items()}
+    logits = ex.run("validate", feed_dict={x: feed[x]})[0]
+    torch.cuda.synchronize()
+    require(f"{label}: validate gives finite {list(logits.shape)} logits "
+            "and changes no param, running stats included",
+            tuple(logits.shape) == (B, r["classes"])
+            and bool(torch.isfinite(logits).all())
+            and all(torch.equal(before[k], v) for k, v in ex.params.items()))
+    del before, init_stats
+    profile_steps(label, step, steps=1, top=16, fns=fns)
+    captures.append(capture_phase(ht, label, ex, "train", feed, fns,
+                                  kernels=False))
+    ex.close()
+    del ex, step, feed
+    free_memory("after the resnet18 path")
+    return ms, launches
+
+
+def resnet_layouts(ht, models, rng, seed, turn=3):
+    """Phase 3g: ``channels_last=True`` (NHWC activations) against the
+    NCHW model with the same weights on the card: one step each on the
+    same batch (loss, and each param's change, running stats included),
+    then both captured, ms/step in turns of ``turn`` steps (NCHW, NHWC,
+    NHWC, NCHW)."""
+    B = RESNET["B"]
+    exs = {}
+    for layout in ("nchw", "nhwc"):
+        nodes, x, y = build_resnet(ht, models, B,
+                                   channels_last=layout == "nhwc")
+        exs[layout] = (ht.Executor(nodes, device="cuda", seed=seed), x, y)
+    ref = exs["nchw"][0]
+    exs["nhwc"][0].load_params({k: v.cpu().numpy()
+                                for k, v in ref.params.items()})
+    init = {k: v.cpu().clone() for k, v in ref.params.items()}
+    X, Y = resnet_arrays(rng, B)
+    X = X.cuda()
+    feeds = {"nchw": {exs["nchw"][1]: X, exs["nchw"][2]: Y.cuda()},
+             "nhwc": {exs["nhwc"][1]: X.permute(0, 2, 3, 1).contiguous(),
+                      exs["nhwc"][2]: Y.cuda()}}
+    losses = {k: ex.run("train", feed_dict=feeds[k])[0]
+              for k, (ex, _, _) in exs.items()}
+    torch.cuda.synchronize()
+    check("resnet18 channels_last vs NCHW, first-step loss (same params "
+          "and batch, on the card)", losses["nhwc"].cpu(),
+          losses["nchw"].cpu(), 0.0,
+          "f32; cuDNN sums each convolution in another order in the two "
+          "memory formats", rtol=1e-5)
+    change_checks("resnet18 channels_last vs NCHW", exs["nhwc"][0], ref,
+                  init, 1e-2, "f32; cuDNN sums in another order in each "
+                  "memory format, and " + RELU_FLIPS + "; at B=2048 the "
+                  "flips' share is ~sqrt(256) times smaller")
+    del init
+    turns = {k: [] for k in exs}
+    for k, (ex, _, _) in exs.items():
+        for _ in range(2):  # the capture
+            ex.run("train", feed_dict=feeds[k])
+    for k in ("nchw", "nhwc", "nhwc", "nchw"):
+        ex = exs[k][0]
+        _, ms, _ = timed_window(
+            lambda: ex.run("train", feed_dict=feeds[k])[0], {}, turn)
+        turns[k].append(ms / turn)
+    for k, t in turns.items():
+        log(f"resnet18 layout {k}: captured {sum(t) / len(t):.3f} ms/step "
+            f"(turns of {turn}: " + " ".join(f"{v:.3f}" for v in t) + ")")
+    for ex, _, _ in exs.values():
+        ex.close()
+    del exs, feeds
+    free_memory("after the resnet18 layouts")
+
+
+def conv_times(turn=2):
+    """ResNet-18's convolutions at B=2048, f32 (TF32 off), as one step
+    runs them: the forward, dgrad (not for the stem) and wgrad, each
+    direction timed alone, under the port's cuDNN setting (deterministic
+    algorithms, benchmark off) and under cuDNN's default choice
+    (benchmark off), in turns (deterministic, default, default,
+    deterministic), beside the step's convolution FLOPs and their bound
+    at the f32 rate."""
+    B = RESNET["B"]
+    cases, flop = [], 0
+    for ci, co, k, stride, hw, count in RESNET_CONVS:
+        x = torch.randn(B, ci, hw, hw, device="cuda")
+        w = torch.randn(co, ci, k, k, device="cuda") * 0.05
+        out = F.conv2d(x, w, None, stride, k // 2)
+        g = torch.randn_like(out)
+        dx = ci != RESNET["C"]
+        flop += count * 2 * out.numel() * ci * k * k * (3 if dx else 2)
+        cases.append((x, w, g, stride, k // 2, count, dx))
+        del out
+
+    def run(direction):
+        for x, w, g, stride, pad, count, dx in cases:
+            for _ in range(count):
+                if direction == "fwd":
+                    F.conv2d(x, w, None, stride, pad)
+                elif direction == "wgrad" or dx:
+                    torch.ops.aten.convolution_backward(
+                        g, x, w, None, [stride] * 2, [pad] * 2, [1, 1],
+                        False, [0, 0], 1,
+                        [direction == "dgrad", direction == "wgrad", False])
+
+    dirs = ("fwd", "dgrad", "wgrad")
+    turns = {(det, d): [] for det in (True, False) for d in dirs}
+    for det in (True, False, False, True):
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=det, allow_tf32=False):
+            for d in dirs:
+                turns[det, d].append(time_ms(lambda: run(d), turn, warmup=1))
+    ms = {key: sum(t) / len(t) for key, t in turns.items()}
+    total = {det: sum(ms[det, d] for d in dirs) for det in (True, False)}
+    log(f"resnet18 convolutions a step (B={B}, f32): {flop / 1e12:.3f} "
+        f"TFLOP, bound {flop / PEAK_OPS[torch.float32] * 1e3:.3f} ms at "
+        f"{PEAK_OPS[torch.float32] / 1e12:g} TFLOP/s; cuDNN deterministic "
+        f"(the port's) {total[True]:.3f} ms, default {total[False]:.3f} ms,"
+        f" deterministic / default {total[True] / total[False]:.4f}; by "
+        "direction, deterministic / default ms (turns): "
+        + "; ".join(f"{d} {ms[True, d]:.3f} / {ms[False, d]:.3f} ("
+                    + " ".join(f"{t:.3f}" for t in turns[True, d]) + " / "
+                    + " ".join(f"{t:.3f}" for t in turns[False, d]) + ")"
+                    for d in dirs))
+    del cases
+    free_memory("after the convolution timings")
+
+
+def cross_device_resnet(ht, models, rng, seed):
+    """One f32 training step of resnet18 at B=8 (32x32) from the same
+    params on the card (cuDNN) and on the CPU: loss, every gradient, and
+    each param's change, running stats included."""
+    B = 8
+    with ht.name_scope():
+        x = ht.placeholder_op("rn_x", (B, 3, 32, 32))
+        y = ht.placeholder_op("rn_y", (B,), dtype=np.int32)
+        logits = models.resnet18(num_classes=10)(x)
+        loss = ht.reduce_mean_op(
+            ht.softmax_cross_entropy_sparse_op(logits, y))
+        xs = ht.graph_variables([loss], trainable_only=True)
+        grads = ht.gradients(loss, xs)
+        train_op = ht.MomentumOptimizer(0.1, 0.9).apply_gradients(
+            list(zip(grads, xs)))
+    nodes = {"train": [loss, train_op, *grads]}
+    ex_gpu = ht.Executor(nodes, device="cuda", seed=seed + 12)
+    ex_cpu = ht.Executor(nodes, device="cpu", seed=seed + 13)
+    ex_cpu.load_params({k: v.cpu().numpy() for k, v in ex_gpu.params.items()})
+    init = {k: v.clone() for k, v in ex_cpu.params.items()}
+    X, Y = resnet_arrays(rng, B)
+    feed = {x: X, y: Y}
+    out_gpu = ex_gpu.run("train", feed_dict=feed)
+    out_cpu = ex_cpu.run("train", feed_dict=feed)
+    torch.cuda.synchronize()
+    check("cross-device f32 resnet18 train loss (cuDNN vs CPU)",
+          out_gpu[0].cpu(), out_cpu[0], 1e-5,
+          "f32 on both sides; the convolutions and batch-norm means sum in "
+          "another order")
+    errs = rel_errors({v.name: (g_gpu.cpu(), g_cpu) for v, g_gpu, g_cpu
+                       in zip(xs, out_gpu[2:], out_cpu[2:])})
+    name = max(errs, key=errs.get)
+    require(f"cross-device f32 resnet18 gradients of {len(xs)} params: worst"
+            f" {errs[name]:.3e} ({name}) in the 2-norm, relative, tol 5e-2 "
+            "(f32 on both sides, summed in another order; " + RELU_FLIPS
+            + ")", errs[name] <= 5e-2)
+    change_checks("cross-device resnet18", ex_gpu, ex_cpu, init, 5e-2,
+                  "the change is -0.1 g: as the gradients")
+    ex_gpu.close()
+
+
 def adamw_change_checks(label, xs, init, ex_gpu, ex_cpu, g_gpu, g_cpu, lr,
                         eps):
     """Each param's change in a first AdamW step, card against CPU.  The
@@ -2814,6 +3120,13 @@ def main():
     if failures:
         log(f"FAILED: {failures}")
         return 1
+    resnet_ms, _ = resnet_paths(ht, models, fns, rng, steps, args.seed,
+                                captures)
+    resnet_layouts(ht, models, rng, args.seed)
+    conv_times()
+    if failures:
+        log(f"FAILED: {failures}")
+        return 1
 
     times = kernel_times(rng, fa, ce, B, S)
     torch.cuda.empty_cache()
@@ -2826,6 +3139,7 @@ def main():
     times.update(blocks["full"])
     times.update(wgmma_times(fa))
     cross_device_llama(ht, models, htp, fns, rng, args.seed)
+    cross_device_resnet(ht, models, rng, args.seed)
     if failures:
         log(f"FAILED: {failures}")
         return 1
@@ -2895,7 +3209,8 @@ def main():
                     for rows, (ms, _) in ctr.items())
         + f"; moe path: {moe_ms:.3f} ms/step; "
         + "; ".join(f"{label}: {v[0]:.3f} ms/step"
-                    for label, v in llama.items()))
+                    for label, v in llama.items())
+        + f"; resnet18 path: {resnet_ms:.3f} ms/step")
     log(json.dumps({"capture": captures}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -16,7 +16,9 @@ single-device BERT training step (autodiff, AdamW, dropout),
 Wide&Deep/CTR training on a packed embedding table (models/ctr.py), the
 single-device MoE FFN training step (layers/moe.py), and Llama training
 under context parallelism (models/llama.py, parallel/: ring and Ulysses
-attention over a ``cp`` mesh axis), all through the Executor.  Names of
+attention over a ``cp`` mesh axis); and ResNet-18/CIFAR training
+(models/resnet.py: convolution, pooling, BatchNorm with running stats,
+SGD and Momentum), all through the Executor.  Names of
 later slices raise ``NotImplementedError`` (ROADMAP.md).
 """
 
@@ -29,7 +31,8 @@ from .graph import (Op, PlaceholderOp, VariableOp, find_topo_sort,
                     disable_capture, name_scope, scoped_init)
 from . import initializers as init
 from .ops import *  # noqa: F401,F403
-from .optim import AdamOptimizer, AdamWOptimizer
+from .optim import (SGDOptimizer, MomentumOptimizer, AdamOptimizer,
+                    AdamWOptimizer)
 from .optim import lr_scheduler
 
 __version__ = "0.1.0"
@@ -63,7 +66,6 @@ def _later(name, where):
 
 
 # the remaining optimizers arrive with slice A3
-for _name in ("SGDOptimizer", "MomentumOptimizer", "AdaGradOptimizer",
-              "AMSGradOptimizer", "LambOptimizer"):
+for _name in ("AdaGradOptimizer", "AMSGradOptimizer", "LambOptimizer"):
     globals()[_name] = _later(_name, "slice A3")
 del _name

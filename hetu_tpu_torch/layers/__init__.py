@@ -1,5 +1,6 @@
-from .base import BaseLayer, fresh_name
-from .common import Linear, LayerNorm, RMSNorm, Embedding
+from .base import BaseLayer, Sequence, Identity, fresh_name
+from .common import (Linear, Conv2d, BatchNorm, LayerNorm, RMSNorm,
+                     Embedding, MaxPool2d, AvgPool2d, Reshape)
 from .attention import MultiHeadAttention
 from .transformer import TransformerLayer, TransformerFFN
 from .moe import (MoELayer, TopKGate, HashGate, KTop1Gate, SAMGate,

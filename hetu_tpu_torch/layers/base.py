@@ -21,3 +21,20 @@ def fresh_name(prefix):
 class BaseLayer:
     def __call__(self, *args, **kwargs):
         raise NotImplementedError
+
+
+class Sequence(BaseLayer):
+    """Sequential container (reference layers/sequence.py)."""
+
+    def __init__(self, *layers):
+        self.layers = list(layers)
+
+    def __call__(self, x):
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+
+class Identity(BaseLayer):
+    def __call__(self, x):
+        return x

@@ -6,3 +6,4 @@ from .ctr import (SparseFeatureEmbedding, WDL, DeepFM, DCN, DLRM,
                   make_wdl_scorer)
 from .llama import (LlamaConfig, LLAMA_CONFIGS, LlamaMLP, LlamaDecoderLayer,
                     LlamaModel, LlamaForCausalLM, BaichuanForCausalLM)
+from .resnet import BasicBlock, ResNet, resnet18, resnet34

@@ -1,5 +1,5 @@
-from .optimizer import (Optimizer, OptimizerOp, AdamOptimizer,
-                        AdamWOptimizer)
+from .optimizer import (Optimizer, OptimizerOp, SGDOptimizer,
+                        MomentumOptimizer, AdamOptimizer, AdamWOptimizer)
 from .lr_scheduler import (LRScheduler, FixedScheduler, StepScheduler,
                            MultiStepScheduler, ExponentialScheduler,
                            CosineScheduler, LinearWarmupScheduler,

@@ -1,5 +1,6 @@
 """Optimizers as graph ops (port of ``hetu_tpu/optim/optimizer.py``, the
-dense path of ``Optimizer``, ``AdamOptimizer`` and ``AdamWOptimizer``).
+dense path of ``Optimizer``, ``SGDOptimizer``, ``MomentumOptimizer``,
+``AdamOptimizer`` and ``AdamWOptimizer``).
 
 ``minimize`` builds the gradient nodes and an ``OptimizerOp``; the op reads
 the gradients, the parameters (the executor's full-precision masters under
@@ -21,7 +22,7 @@ finishes it in place, so that at most one temporary of a parameter's size
 lives beside the parameter, its gradient and the moments.
 
 Lazy sparse updates (``sparse_vars``, ``apply_sparse``) are slice B2 of the
-port; SGD, Momentum, AdaGrad, AMSGrad and Lamb are slice A3 (ROADMAP.md).
+port; AdaGrad, AMSGrad and Lamb are slice A3 (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -84,6 +85,37 @@ class Optimizer:
     def apply_gradients(self, grads_and_vars):
         grads, var_list = zip(*grads_and_vars)
         return OptimizerOp(list(grads), list(var_list), self)
+
+
+class SGDOptimizer(Optimizer):
+    def apply_dense_(self, param, grad, slots, lr, step):
+        # param - lr * grad
+        return torch.mul(self._regularized(param, grad), lr)
+
+
+class MomentumOptimizer(Optimizer):
+    """The JAX package's momentum, not ``torch.optim.SGD``'s: ``v <- m v -
+    lr g``, then ``p <- p + v`` (with ``nesterov``, ``p + m v - lr g``).
+    Plain momentum returns ``d = -v``, so ``p - d`` gives the bits of ``p +
+    v``.  Nesterov returns ``d = lr g - m v``; ``p - d`` rounds once where
+    JAX's ``(p + m v) - lr g`` rounds twice, so it agrees with JAX to about
+    an ulp of ``p`` a step, not bitwise."""
+
+    slot_names = ("velocity",)
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, nesterov=False,
+                 l2reg=0.0):
+        super().__init__(learning_rate, l2reg)
+        self.momentum = momentum
+        self.nesterov = nesterov
+
+    def apply_dense_(self, param, grad, slots, lr, step):
+        lr_g = torch.mul(self._regularized(param, grad), lr)
+        # m * v - lr * g, in place
+        v = slots["velocity"].mul_(self.momentum).sub_(lr_g)
+        if self.nesterov:
+            return lr_g.sub_(torch.mul(v, self.momentum))
+        return v.neg()
 
 
 class AdamOptimizer(Optimizer):

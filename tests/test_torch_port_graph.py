@@ -170,7 +170,7 @@ def test_training_names_raise():
     """The optimizers of slice A3 and gradients with respect to interior
     nodes (slice F) raise, naming their slice."""
     with pytest.raises(NotImplementedError, match="slice A3"):
-        pt.SGDOptimizer(learning_rate=1e-4)
+        pt.AdaGradOptimizer(learning_rate=1e-4)
     x = pt.placeholder_op("x", (2,))
     with pytest.raises(NotImplementedError, match="slice F"):
         pt.gradients(pt.reduce_mean_op(x * 2.0), [x])

@@ -2,7 +2,14 @@
 against the JAX package on the same graph, params and feeds.
 
 Tolerances: AdamW params after 3 steps atol 1e-6 (f32 on both sides; the
-steps move params by ~lr = 1e-2, and the rule is the same arithmetic).  At
+steps move params by ~lr = 1e-2, and the rule is the same arithmetic).
+SGD and Momentum: the update rules alone, on the same params, gradients
+and slots for 5 steps, bitwise against the JAX rules run op by op (the
+same f32 operations in the same order), with and without ``l2reg``;
+Nesterov within an ulp of the largest |param| a step (``p - (lr g - m v)`` rounds
+once where JAX's ``(p + m v) - lr g`` rounds twice).  Through both
+executors, the params after 5 steps atol 1e-6 (gradients summed in another
+order).  At
 step 1 the update is lr * g / (|g| + eps), about lr * sign(g), which hides
 gradient errors, so the gradients are compared directly too (rtol 1e-5,
 atol 1e-7).  Schedules: rtol 1e-6 (f32 arithmetic on both sides) + atol
@@ -126,8 +133,7 @@ def test_later_slices_raise():
         pt.AdamWOptimizer().minimize(loss, sparse_vars=[xs[0]])
     with pytest.raises(NotImplementedError, match="slice A3"):
         pt.AdamOptimizer(amsgrad=True)
-    for name in ("SGDOptimizer", "MomentumOptimizer", "AdaGradOptimizer",
-                 "AMSGradOptimizer", "LambOptimizer"):
+    for name in ("AdaGradOptimizer", "AMSGradOptimizer", "LambOptimizer"):
         with pytest.raises(NotImplementedError, match="slice A3"):
             getattr(pt, name)(learning_rate=0.1)
 
@@ -191,3 +197,79 @@ def test_adam_update_holds_one_temporary(kind):
         p_ref = param - lr * (mhat / denom + 0.01 * param)
     assert torch.equal(slots["m"], m_ref) and torch.equal(slots["v"], v_ref)
     assert torch.equal(new_p, p_ref)
+
+
+_RULES = [("sgd", {}), ("sgd", {"l2reg": 0.05}), ("momentum", {}),
+          ("momentum", {"l2reg": 0.05}), ("nesterov", {}),
+          ("nesterov", {"l2reg": 0.05})]
+
+
+def _opt(pkg, kind, kw, lr=0.1):
+    if kind == "sgd":
+        return pkg.SGDOptimizer(learning_rate=lr, **kw)
+    return pkg.MomentumOptimizer(learning_rate=lr, momentum=0.9,
+                                 nesterov=kind == "nesterov", **kw)
+
+
+@pytest.mark.parametrize("kind,kw", _RULES,
+                         ids=[f"{k}-{sorted(kw)}" for k, kw in _RULES])
+def test_sgd_momentum_rules_match_jax_bits(kind, kw):
+    """The in-place rule (``apply_dense_``, the param then written as ``p -
+    d``, as the executor writes it) against JAX's functional rule over 5
+    steps from the same state and gradients."""
+    rng = np.random.default_rng(2)
+    n = 4099
+    p = rng.standard_normal(n).astype(np.float32)
+    jp, tp = jnp.asarray(p), torch.from_numpy(p.copy())
+    jo, to = _opt(jt, kind, kw), _opt(pt, kind, kw)
+    jslots = {k: jnp.zeros(n, jnp.float32) for k in jo.slot_names}
+    tslots = to.init_slots(tp)
+    assert set(tslots) == set(jslots)
+    for step in range(5):
+        g = rng.standard_normal(n).astype(np.float32)
+        lr_j = jo.lr.get(jnp.asarray(step, jnp.int32))
+        lr_t = to.lr.get(torch.tensor(step, dtype=torch.int32))
+        jp, jslots = jo.apply_dense(jp, jnp.asarray(g), jslots, lr_j, step)
+        tp.sub_(to.apply_dense_(tp, torch.from_numpy(g), tslots, lr_t,
+                                step))
+        for k in jslots:
+            np.testing.assert_array_equal(tslots[k].numpy(),
+                                          np.asarray(jslots[k]))
+        if kind == "nesterov":
+            np.testing.assert_allclose(
+                tp.numpy(), np.asarray(jp), rtol=0,
+                atol=np.spacing(np.abs(np.asarray(jp))).max())
+            tp.copy_(torch.from_numpy(np.array(jp)))
+        else:
+            np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+
+
+@pytest.mark.parametrize("kind,kw", _RULES[::2] + [_RULES[3]],
+                         ids=["sgd", "momentum", "nesterov", "momentum-l2"])
+def test_sgd_momentum_minimize_matches_jax_over_five_steps(kind, kw):
+    def build(pkg):
+        x, loss, xs = _graph(pkg)
+        return x, loss, xs, _opt(pkg, kind, kw, lr=0.05).minimize(loss)
+
+    with jt.name_scope():
+        xj, lj, vj, opj = build(jt)
+    with pt.name_scope():
+        xt, lt, vt, opt_ = build(pt)
+    jex = jt.Executor({"train": [lj, opj]})
+    tex = pt.Executor({"train": [lt, opt_]}, device="cpu")
+    rng = np.random.default_rng(3)
+    for _ in range(5):
+        X = rng.standard_normal((8, 16)).astype(np.float32)
+        want = jex.run("train", feed_dict={xj: X},
+                       convert_to_numpy_ret_vals=True)
+        got = tex.run("train", feed_dict={xt: X},
+                      convert_to_numpy_ret_vals=True)
+        assert got[1] is None
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    for v, u in zip(vt, vj):
+        np.testing.assert_allclose(tex.params[v.name].numpy(),
+                                   np.asarray(jex.params[u.name]), atol=1e-6)
+    state = tex.opt_state[opt_.name]
+    assert int(state["step"]) == 5
+    assert set(state["slots"][vt[0].name]) == (
+        set() if kind == "sgd" else {"velocity"})
