@@ -108,7 +108,8 @@ Phases, each fatal on failure (exit 1, no result lines):
       witness) must give bitwise equal losses and checkpoints (params,
       optimizer steps and slots, generator state, step count);
       ``run_steps(..., 20)`` must equal 20 ``run()`` calls bitwise (the
-      last loss and the checkpoint); eager and captured ms/step in
+      last loss and the checkpoint; 5 for the Mixtral layer and the
+      witness); eager and captured ms/step in
       alternating turns (eager, captured, captured, eager, twice), peak
       memory (captured: allocated plus the graph pool), and traced
       windows of each in turns: busy time, idle share, launches.  A ``{"capture":
@@ -127,6 +128,28 @@ Phases, each fatal on failure (exit 1, no result lines):
       step's convolutions timed under the port's deterministic cuDNN
       choice and under cuDNN's default, in turns, beside their FLOPs and
       f32 bound.
+   h. The continuous-batching serving engine (slice D1, bench.py --serve's
+      slot engine) at Mistral-7B's published widths with all 32 layers
+      (hidden 4096, 32/8 heads, FFN 14336, vocab 32000; 7.24 B params),
+      the executor's params cast to bf16 (``Executor.cast_params``):
+      ``InferenceEngine(n_slots=16, max_len=1024, max_prompt_len=512,
+      prefill_budget=2)``, greedy, on bench.py's ``_serve_trace`` (seed 0,
+      64 requests, Poisson gaps of 0.6 iterations, prompts of 64-512
+      uniform ids, max_new 32-256), its prefill and decode step each
+      captured in a CUDA graph: output tokens/s, TTFT, TPOT and queue-wait
+      p50/p99, mean occupancy, peak memory beside params + KV pool, each
+      graph's pool (smaller than the KV pool: written in place), no
+      hand-written kernel launched (counted and traced), ``trace_counts``
+      1 each after warm-up; the trace's first 16 requests eagerly
+      (``disable_capture()``) and the whole trace through the gang twin
+      (``gang=True``), both with bitwise equal streams; prefill at P = 512
+      and decode ms/step with every slot active, eager against captured in
+      turns, beside their bounds, and traced prefill and decode windows
+      (busy time, idle share, no hand-written kernel traced or counted;
+      the card's activity only); ``greedy_generate`` against an engine
+      serving the trace's first request alone, bitwise.  The programs'
+      replays add the launches their captures counted, as the executor's
+      do, so the counters see what a captured prefill or step launches.
    Each path's step is broken down by kernel class under torch.profiler.
    Then each kernel is timed at the paths' shapes beside its bound, its
    plain version and one PyTorch library call (a yardstick only; the port
@@ -134,13 +157,18 @@ Phases, each fatal on failure (exit 1, no result lines):
    (rows a program, chunk width, warps, stages); ``pack_write`` also under
    Zipf ids at M = 3328 and 65,536 against ``index_add_`` in turns;
    ``row_gather``'s step also against ``index_select`` in alternating
-   turns.  Then one f32 training step of BERT (batch 2, 2 layers,
-   full widths, dropout off), one of W&D (337,000 rows), one of a small
+   turns, and beside a read-only pass over the bytes each gather reads
+   and a write-only pass over the bytes it writes, timed the same way.
+   Then one f32 training step of BERT (batch 2, 2 layers, full widths,
+   dropout off), one of W&D (337,000 rows), one of a small
    MoE layer (H=128, F=256, 4 experts, 64 tokens), one of a small
    Llama under cp=4 (2 layers, hidden 256, 4 heads, 2 KV heads, S=1024)
    and one of ResNet-18 at B=8 run from the same params on the card
    (kernels, cuDNN) and on the CPU (plain versions): loss, every gradient
-   and every updated param (ResNet's running stats too) are compared.
+   and every updated param (ResNet's running stats too) are compared; and
+   a small f32 Llama (2 layers, hidden 256, 8/2 heads, vocab 1024) served
+   on both: the slot adapter's prefill and decode logits, and the
+   engines' streams on a seeded trace.
    The blockwise kernels are timed at the witness's block shape, q
    [1,32,2048,128] bf16, for the full, diagonal and empty blocks, beside
    scaled_dot_product_attention (the yardstick) and its backward; the
@@ -202,6 +230,7 @@ RESNET_CONVS = ((3, 64, 3, 1, 32, 1), (64, 64, 3, 1, 32, 4),
                 (256, 512, 1, 2, 8, 1))
 
 failures = []
+T0 = time.perf_counter()
 
 
 def log(*args):
@@ -241,17 +270,22 @@ def check_spread(name, got, want, atol, rtol, spread, why):
 
 def free_memory(tag):
     """Collect garbage (executors sit in reference cycles), return the
-    allocator's free cached blocks to the card, and log what stays."""
+    allocator's free cached blocks to the card, and log what stays and
+    the seconds since the script started."""
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"memory {tag}: allocated {torch.cuda.memory_allocated() / 2**30:.2f}"
-        f" GiB, reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+        f" GiB, reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB, at "
+        f"{time.perf_counter() - T0:.0f} s")
 
 
 def require(name, ok):
     log(f"check {name}: {'ok' if ok else 'FAIL'}")
     if not ok:
+        # on the error stream too, where a caller that keeps only its end
+        # still reads which check failed
+        print(f"check {name}: FAIL", file=sys.stderr, flush=True)
         failures.append(name)
 
 
@@ -1228,44 +1262,81 @@ def traced_launches(kernels, counted):
             if n or counted.get(name, 0)}
 
 
-def profile_steps(label, step, steps=2, top=12, fns=None):
+# the record_function ranges of the serving engine (no kernel time)
+RANGES = ("serve_prefill", "serve_decode")
+
+
+def profile_steps(label, step, steps=2, top=12, fns=None, cpu=True):
     """Where a path's step time goes: device time by kernel under
     torch.profiler (the kernels of a replayed CUDA graph each show), and
-    the device's idle share of the traced window, whose wall time CUDA
-    events take.  Returns {"wall_ms", "busy_ms", "idle", "launches"} a
-    step (None if the profiler saw no device time), and with the launch
-    counters ``fns`` (zeroed just before the window, read just after)
-    "kernels": ``traced_launches`` of the window; ``top=0`` logs the
-    totals only."""
+    the device's idle share of the traced window.  The busy time (the
+    union of the device records' intervals: on Hopper a kernel may start
+    before the one ahead of it ends, so their summed times can exceed
+    the window) and the window (from the start of its first record to
+    the end of its last) are read off the trace's one clock; CUDA events
+    take the window's wall time beside it.  A window in which the
+    profiler recorded no device time (it now and then drops a window's
+    device records) is traced again, up to 3 times, and logged.  Returns
+    {"wall_ms", "busy_ms", "idle", "launches"} a step (None if no window
+    recorded any), and with the launch counters ``fns`` (zeroed just
+    before the window, read just after) "kernels": ``traced_launches`` of
+    the window; ``top=0`` logs the totals only; ``cpu=False`` traces the
+    card's activity only, so that the host's own work is not slowed by
+    tracing."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    for fn in (fns or {}).values():
-        fn.launches = 0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(steps):
-            step()
-        end.record()
+    for attempt in range(3):
         torch.cuda.synchronize()
-    wall_us = start.elapsed_time(end) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    if busy_us <= 0:
-        log(f"profile {label}: the profiler saw no device time")
+        for fn in (fns or {}).values():
+            fn.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU] * cpu
+                     + [ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for _ in range(steps):
+                step()
+            end.record()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.name not in RANGES]
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in device)
+        busy_us, reach = 0.0, float("-inf")
+        for lo, hi in spans:
+            busy_us += max(0.0, hi - max(lo, reach))
+            reach = max(reach, hi)
+        if busy_us > 0:
+            break
+        log(f"profile {label}: the profiler saw no device time; traced "
+            f"again ({attempt + 1} of 3)")
+    else:
         return None
+    wall_us = start.elapsed_time(end) * 1e3
+    window_us = reach - spans[0][0]
+    summed_us = sum(hi - lo for lo, hi in spans)
+    # busy time counts kernels, copies and fills: a range (a
+    # record_function annotation) counted with them would fill its whole
+    # span and hide the idle time
+    ranges = sorted({e.name for e in device if e.is_user_annotation})
+    require(f"profile {label}: the busy time ({busy_us:.1f} us of a "
+            f"{window_us:.1f} us window; the records' times sum to "
+            f"{summed_us:.1f}) counts no annotated range"
+            + (f" (counts {ranges})" if ranges else ""), not ranges)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in RANGES]
     out = {"wall_ms": wall_us / steps / 1e3, "busy_ms": busy_us / steps / 1e3,
-           "idle": max(0.0, 1 - busy_us / wall_us),
+           "idle": 1 - busy_us / window_us,
            "launches": sum(e.count for e in kernels) // steps}
     if fns:
         out["kernels"] = traced_launches(
             kernels, {name: fn.launches for name, fn in fns.items()})
     log(f"profile {label}: {steps} steps, {out['wall_ms']:.3f} "
-        f"ms/step wall (traced, CUDA events), device busy "
-        f"{out['busy_ms']:.3f} ms/step, idle share {out['idle']:.3f}, "
+        f"ms/step wall (traced, CUDA events; {window_us / steps / 1e3:.3f} "
+        f"from the first record to the last), device busy "
+        f"{out['busy_ms']:.3f} ms/step, "
+        f"idle share {out['idle']:.3f}, "
         f"{out['launches']} kernel launches/step"
         + (f", kernels (traced, counted) {out['kernels']}" if fns else ""))
     if not top:
@@ -2132,6 +2203,36 @@ def moe_paths(ht, layers, fns, rng, steps, seed, captures):
     return ms, launches
 
 
+def l2_yardsticks(parts):
+    """Whether a cold reading can beat a bytes bound: for each (read,
+    written) byte count of ``parts``, a read-only pass (a sum) over the
+    read bytes and a write-only pass (a fill) over the written ones, each
+    timed as ``device_ms(cold=True)`` times a kernel, beside its bytes
+    bound.  A read cannot beat HBM; stores that still sit in the 50 MB L2
+    when the kernel ends can."""
+    a = torch.randn(max(r for r, _ in parts) // 4, device="cuda")
+    b = torch.empty(max(w for _, w in parts) // 4, device="cuda")
+    tot = {"read": 0.0, "write": 0.0, "read_bound": 0.0, "write_bound": 0.0}
+    for r, w in parts:
+        ra, wb = a[:r // 4], b[:w // 4]
+        t = {"read": device_ms(lambda: ra.sum(), 50, cold=True),
+             "write": device_ms(lambda: wb.fill_(1.0), 50, cold=True),
+             "read_bound": r / HBM_BYTES_PER_S * 1e3,
+             "write_bound": w / HBM_BYTES_PER_S * 1e3}
+        log(f"L2 yardsticks, L2 cold: a sum of {r / 1e6:.1f} MB "
+            f"{t['read']:.4f} ms (bound {t['read_bound']:.4f}), a fill of "
+            f"{w / 1e6:.1f} MB {t['write']:.4f} ms (bound "
+            f"{t['write_bound']:.4f})")
+        for k in tot:
+            tot[k] += t[k]
+    log(f"L2 yardsticks, the gathers' reads and writes summed: reads "
+        f"{tot['read']:.4f} ms against {tot['read_bound']:.4f}, writes "
+        f"{tot['write']:.4f} ms against {tot['write_bound']:.4f}: the "
+        f"writes {'beat' if tot['write'] < tot['write_bound'] else 'do not beat'}"
+        " their bound")
+    del a, b
+
+
 def row_gather_times(rng, md):
     """row_gather at the bench_moe path's three gathers (the dispatch, two
     combines) on the layer's routing: the kernel, the plain version and
@@ -2142,7 +2243,7 @@ def row_gather_times(rng, md):
     T, C, disp, combs = moe_routing(rng, MOE)
     H, E = MOE["H"], MOE["E"]
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0)
-    gathers = []
+    gathers, parts = [], []
     for name, n, idx in (("dispatch", T, disp), ("combine 0", E * C,
                                                  combs[0]),
                          ("combine 1", E * C, combs[1])):
@@ -2161,6 +2262,7 @@ def row_gather_times(rng, md):
         # in two slots is read once), write every output row once, read
         # the m int32 indices
         n_bytes = rows * H * 4 + m * H * 4 + m * 4
+        parts.append((rows * H * 4 + m * 4, m * H * 4))
         b = bound(n_bytes, 0, torch.float32)
         log(f"kernel row_gather {name} [{n},{H}] f32 by {m} "
             f"({in_range.numel()} in range, {rows} distinct rows), device "
@@ -2179,6 +2281,7 @@ def row_gather_times(rng, md):
         tot["bytes"] += n_bytes
         gathers.append((src, idx, clamped))
     tot["bound"] = bound(tot["bytes"], 0, torch.float32)
+    l2_yardsticks(parts)
     log(f"kernel row_gather, one bench_moe step's 3 launches, L2 cold: "
         f"kernel {tot['ms']:.4f} ms, bound {tot['bound'][0]:.4f} ms, plain "
         f"{tot['plain_ms']:.4f} ms, index_select {tot['library_ms']:.4f} ms")
@@ -2940,6 +3043,364 @@ def cross_device_resnet(ht, models, rng, seed):
     ex_gpu.close()
 
 
+# -- path h: the continuous-batching Llama serving engine ----------------------
+
+# bench.py --serve's slot engine (bench.py:1602-1614) at Mistral-7B's
+# published widths and full depth, bf16 weights; the trace is
+# ``_serve_trace``'s form (bench.py:1539-1554) at 64 requests
+SERVE = dict(config="mistral-7b", n_slots=16, max_len=1024, max_prompt=512,
+             prefill_budget=2, requests=64, p_lo=64, p_hi=512, new_lo=32,
+             new_hi=256, mean_gap=0.6, trace_seed=0)
+# the card-vs-CPU check's f32 config
+SERVE_SMALL = dict(vocab_size=1024, hidden_size=256, num_layers=2,
+                   num_heads=8, num_kv_heads=2, intermediate_size=512)
+
+
+def serve_trace(seed, n_requests, vocab, p_lo, p_hi, new_lo, new_hi,
+                mean_gap=0.6):
+    """bench.py's ``_serve_trace``: Poisson arrivals measured in scheduler
+    iterations (exponential gaps of mean ``mean_gap``), prompts of uniform
+    ids and lengths in [p_lo, p_hi], output budgets in [new_lo, new_hi]:
+    [(arrival iteration, prompt, max_new)]."""
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(mean_gap, n_requests)
+    arrivals = np.floor(np.cumsum(gaps)).astype(np.int64)
+    trace = []
+    for i in range(n_requests):
+        p_len = int(rng.integers(p_lo, p_hi + 1))
+        trace.append((int(arrivals[i]),
+                      rng.integers(1, vocab, (p_len,)).astype(np.int32),
+                      int(rng.integers(new_lo, new_hi + 1))))
+    return trace
+
+
+def serve_replay(engine, trace):
+    """bench.py's ``_serve_replay``: drive the engine through the trace
+    (the arrival clock is the iteration index); the requests, wall
+    seconds, iterations and ``stream_sha`` (every request's tokens in
+    trace order)."""
+    import hashlib
+    engine.reset_stats()
+    t0 = time.perf_counter()
+    submitted, it, reqs = 0, 0, []
+    while submitted < len(trace) or not engine.scheduler.idle:
+        while submitted < len(trace) and trace[submitted][0] <= it:
+            _, prompt, max_new = trace[submitted]
+            reqs.append(engine.submit(prompt, max_new))
+            submitted += 1
+        engine.step()
+        it += 1
+    wall = time.perf_counter() - t0
+    sha = hashlib.sha256()
+    for r in reqs:
+        sha.update(np.asarray(r.tokens, np.int32).tobytes())
+    return {"reqs": reqs, "wall_s": wall, "iterations": it,
+            "tokens": sum(len(r.tokens) for r in reqs),
+            "sha": sha.hexdigest()[:16], "stats": engine.stats()}
+
+
+def served_llama(ht, models, config, name, seed, dtype, device="cuda"):
+    """A LlamaForCausalLM's executor (a forward subgraph, never run) with
+    its params cast to ``dtype`` — what a user serves."""
+    model = models.LlamaForCausalLM(config, name=name)
+    ids = ht.placeholder_op(f"{name}_ids", (1, 4), dtype=np.int32)
+    ex = ht.Executor([model(ids)], device=device, seed=seed)
+    ex.cast_params(dtype)
+    return ex, model
+
+
+def decode_turns(ht, eng, fns, turn=10):
+    """Decode ms/step of ``eng.step()`` with every slot decoding and no
+    admission, eager (``disable_capture()``) against captured in turns of
+    ``turn`` steps (captured, eager, eager, captured), CUDA events; then
+    traced windows of each (captured, eager): busy time, idle share, and
+    no hand-written kernel traced or counted."""
+    modes = {"captured": [], "eager": []}
+    for mode in ("captured", "eager", "eager", "captured"):
+        with (ht.disable_capture() if mode == "eager"
+              else contextlib.nullcontext()):
+            _, ms, launches = timed_window(eng.step, fns, turn)
+        require(f"serving decode {mode} turn: no hand-written kernel "
+                "launched", not any(launches.values()))
+        modes[mode].append(ms / turn)
+    traces = {}
+    for mode in ("captured", "eager"):
+        with (ht.disable_capture() if mode == "eager"
+              else contextlib.nullcontext()):
+            t = profile_steps(f"serving decode {mode}", eng.step, steps=turn,
+                              top=12 if mode == "captured" else 0, fns=fns,
+                              cpu=False)
+        require(f"serving decode {mode}: the traced window shows and the "
+                "counters count no hand-written kernel",
+                t is not None and not t["kernels"])
+        traces[mode] = t
+    return modes, traces
+
+
+def serving_paths(ht, models, fns, rng, seed, captures):
+    """Phase 3h: the slot serving engine at Mistral-7B's widths with its 32
+    layers, bf16, on a seeded 64-request Poisson trace; its gang twin, its
+    eager run, decode and prefill against their bounds, traced prefill and
+    decode windows, peak memory, and ``greedy_generate`` against a one-request
+    engine.  Returns the summary (also appended to ``captures``)."""
+    from hetu_tpu_torch.metrics import request_latency_summary
+    from hetu_tpu_torch.models.llama_decode import greedy_generate
+    from hetu_tpu_torch.serving import InferenceEngine
+    s = SERVE
+    c = models.LlamaConfig(**models.LLAMA_CONFIGS[s["config"]])
+    name = "mistral"
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with ht.name_scope():
+        ex, model = served_llama(ht, models, c, name, seed, torch.bfloat16)
+    free_memory("after the served executor's cast to bf16")
+    n_params = sum(t.numel() for t in ex.params.values())
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in ex.params.values())
+    log(f"serving path: {s['config']} (hidden {c.hidden_size}, "
+        f"{c.num_layers} layers, heads {c.num_heads}/{c.num_kv_heads}, FFN "
+        f"{c.intermediate_size}, vocab {c.vocab_size}), {n_params} params, "
+        f"{param_bytes / 1e9:.3f} GB bf16, init and cast "
+        f"{time.perf_counter() - t0:.1f} s")
+    kw = dict(n_slots=s["n_slots"], max_len=s["max_len"],
+              max_prompt_len=s["max_prompt"],
+              prefill_budget=s["prefill_budget"], name=name, seed=seed)
+    trace = serve_trace(s["trace_seed"], s["requests"], c.vocab_size,
+                        s["p_lo"], s["p_hi"], s["new_lo"], s["new_hi"],
+                        s["mean_gap"])
+
+    def engine(**more):
+        eng = InferenceEngine(ex, model, **kw, **more)
+        # warm-up: two requests, so that each program runs eagerly once
+        # and is captured at its second call
+        eng.generate_many([trace[0][1][:64], trace[1][1][:64]], 3)
+        return eng
+
+    eng = engine()
+    pool_bytes = eng.cache.nbytes
+    require(f"serving path: trace_counts after warm-up {eng.trace_counts}",
+            eng.trace_counts == {"prefill": 1, "step": 1})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    for fn in fns.values():
+        fn.launches = 0
+    res = serve_replay(eng, trace)
+    launches = {k: fn.launches for k, fn in fns.items() if fn.launches}
+    peak = torch.cuda.max_memory_allocated()
+    graphs = eng.graph_bytes
+    st, reqs = res["stats"], res["reqs"]
+    lat = request_latency_summary(eng.records)
+    tps = res["tokens"] / res["wall_s"]
+    log(f"serving path: {len(reqs)} requests, {res['tokens']} tokens in "
+        f"{res['wall_s']:.3f} s ({res['iterations']} iterations, "
+        f"{st['decode_steps']} decode steps, {st['prefills']} prefills): "
+        f"mistral7b_serve_output_tokens_per_sec {tps:.1f}, mean occupancy "
+        f"{st['mean_occupancy']}, peak active {st['peak_active']}, stream "
+        f"sha {res['sha']}")
+    for key in ("ttft", "tpot", "queue_wait"):
+        log(f"serving path: {key} p50 {lat[key]['p50'] * 1e3:.3f} ms, p99 "
+            f"{lat[key]['p99'] * 1e3:.3f} ms, mean "
+            f"{lat[key]['mean'] * 1e3:.3f} ms")
+    peak -= base
+    log(f"serving path: peak allocated {peak / 2**30:.3f} GiB (resident "
+        f"{(resident - base) / 2**30:.3f} GiB; both less the "
+        f"{base / 2**30:.3f} GiB allocated before the path) beside params "
+        f"{param_bytes / 2**30:.3f}"
+        f" + pool {pool_bytes / 2**30:.3f} = "
+        f"{(param_bytes + pool_bytes) / 2**30:.3f} GiB; graph pools "
+        f"prefill {graphs['prefill'] / 2**30:.3f} GiB, step "
+        f"{graphs['step'] / 2**30:.3f} GiB")
+    require("serving path: every request finished, "
+            + f"{sum(r.finish_reason == 'max_new' for r in reqs)} of "
+            f"{len(reqs)} at max_new",
+            all(r.finished and r.finish_reason == "max_new" for r in reqs))
+    require(f"serving path: trace_counts after the replay {eng.trace_counts}",
+            eng.trace_counts == {"prefill": 1, "step": 1})
+    require(f"serving path: no hand-written kernel launched ({launches})",
+            not launches)
+    require("serving path: each graph's pool is smaller than the KV pool "
+            f"({pool_bytes / 2**30:.3f} GiB): no program holds a second copy",
+            max(graphs.values()) < pool_bytes)
+
+    # why bits need equal shapes: one row of the first layer's q product
+    # at 1, 16 and 512 rows
+    x = torch.randn(512, c.hidden_size, device="cuda",
+                    dtype=torch.bfloat16)
+    w = ex.params[f"{name}_layer0_attn_q_weight"]
+    rows = {n: (x[:n] @ w)[:1] for n in (1, 16, 512)}
+    log("serving path: one row of the q product at 1 / 16 / 512 rows, "
+        "bitwise equal to 16 rows': "
+        + ", ".join(f"{n}: {torch.equal(r, rows[16])}"
+                    for n, r in rows.items()))
+    del x, rows
+
+    # the trace's first requests again, eagerly, on the same engine: a
+    # request's stream does not depend on its co-tenants, so each equals
+    # its captured stream above
+    n_eager = s["n_slots"]
+    with ht.disable_capture():
+        res_e = serve_replay(eng, trace[:n_eager])
+    eager_same = ([r.tokens for r in res_e["reqs"]]
+                  == [r.tokens for r in reqs[:n_eager]])
+    require(f"serving path: the eager replay of the trace's first {n_eager} "
+            f"requests ({res_e['tokens']} tokens, {res_e['wall_s']:.3f} s) "
+            "gives each the captured replay's stream bitwise", eager_same)
+
+    # prefill at P = 512: one request of max_new 1 is one prefill an
+    # iteration and no decode step
+    prompt = trace[0][1]
+    long_prompt = np.resize(prompt, s["max_prompt"])
+    pre = {"captured": [], "eager": []}
+    for mode in ("captured", "eager", "eager", "captured"):
+        with (ht.disable_capture() if mode == "eager"
+              else contextlib.nullcontext()):
+            for _ in range(3):
+                eng.submit(long_prompt, 1)
+                t = time.perf_counter()
+                eng.step()
+                pre[mode].append((time.perf_counter() - t) * 1e3)
+    pre_bound = 2 * n_params * s["max_prompt"] / PEAK_OPS[torch.bfloat16]
+    pre_ms = {m: min(v) for m, v in pre.items()}
+
+    def prefill_only():
+        eng.submit(long_prompt, 1)
+        eng.step()
+
+    pre_trace = profile_steps("serving prefill captured", prefill_only,
+                              steps=3, fns=fns, cpu=False)
+    require("serving prefill captured: the traced window shows and the "
+            "counters count no hand-written kernel",
+            pre_trace is not None and not pre_trace["kernels"])
+    log(f"serving prefill P={s['max_prompt']}: captured "
+        f"{pre_ms['captured']:.3f} ms, eager {pre_ms['eager']:.3f} ms (best "
+        f"of 6 in turns; all: {pre}), bound {pre_bound * 1e3:.3f} ms "
+        f"(operations: 2 x {n_params} params x {s['max_prompt']} tokens at "
+        f"989 TFLOP/s)")
+
+    # decode ms/step with every slot decoding
+    full = [eng.submit(np.resize(trace[i][1], s["max_prompt"]),
+                       s["max_len"] - s["max_prompt"])
+            for i in range(s["n_slots"])]
+    while eng.scheduler.queue:
+        eng.step()
+    modes, traces = decode_turns(ht, eng, fns)
+    dec_bound = (param_bytes + pool_bytes) / HBM_BYTES_PER_S
+    dec = {m: sum(v) / len(v) for m, v in modes.items()}
+    log(f"serving decode, {s['n_slots']} slots active: captured "
+        f"{dec['captured']:.3f} ms/step, eager {dec['eager']:.3f} (turns: "
+        f"{modes}), bound {dec_bound * 1e3:.3f} ms (bytes: params "
+        f"{param_bytes / 1e9:.3f} GB + KV pool {pool_bytes / 1e9:.3f} GB at "
+        f"3.35 TB/s)")
+    for r in full:
+        eng.cancel(r.rid)
+    require("serving path: trace_counts after the timing "
+            f"{eng.trace_counts}", eng.trace_counts == {"prefill": 1,
+                                                         "step": 1})
+
+    # the gang twin: the same programs, static batching
+    del eng
+    free_memory("after the continuous engine")
+    gang = engine(gang=True)
+    res_g = serve_replay(gang, trace)
+    require(f"serving path: the gang twin's streams equal the continuous "
+            f"engine's bitwise (sha {res_g['sha']} / {res['sha']}; "
+            f"{res_g['stats']['decode_steps']} decode steps against "
+            f"{st['decode_steps']}, {res_g['tokens'] / res_g['wall_s']:.1f} "
+            "tokens/s)", res_g["sha"] == res["sha"])
+    del gang
+    free_memory("after the gang twin")
+
+    # greedy_generate against an engine serving the one request alone, on
+    # its own geometry (one slot, its prompt's length, its total length):
+    # cuBLAS picks a product's kernel by its row count, so a row's bits
+    # are the same only between products of the same shape
+    p, m = trace[0][1], trace[0][2]
+    one = InferenceEngine(ex, model, n_slots=1, max_len=len(p) + m,
+                          max_prompt_len=len(p), name=name, seed=seed)
+    alone = one.generate_many([p], m)[0]
+    del one
+    want = greedy_generate(ex, model, p[None], m, name=name)[0, len(p):]
+    in_trace = np.asarray(reqs[0].tokens)
+    agree = int(np.argmin(np.append(in_trace == want, False)))
+    require(f"serving path: greedy_generate gives the one-request engine's "
+            f"stream ({m} tokens, prompt {len(p)}) bitwise",
+            np.array_equal(alone, want))
+    log(f"serving path: the 16-slot engine's stream of that request agrees "
+        f"with greedy_generate's for its first {agree} of {m} tokens")
+    ex.close()
+    del ex, model
+    free_memory("after the serving path")
+    out = {"path": "serving (mistral-7b, 32 layers)", "bitwise":
+           eager_same, "gang_bitwise":
+           res_g["sha"] == res["sha"], "tokens_per_sec": tps,
+           "latency_s": {k: {q: lat[k][q] for q in ("p50", "p99")}
+                         for k in lat},
+           "mean_occupancy": st["mean_occupancy"],
+           "decode_ms": dec, "decode_bound_ms": dec_bound * 1e3,
+           "prefill_ms": pre_ms, "prefill_bound_ms": pre_bound * 1e3,
+           "peak_gib": peak / 2**30,
+           "params_plus_pool_gib": (param_bytes + pool_bytes) / 2**30,
+           "graph_pool_gib": {k: v / 2**30 for k, v in graphs.items()},
+           "trace_counts": {"prefill": 1, "step": 1},
+           **{f"{m}_trace": {k: t[k] for k in ("busy_ms", "idle",
+                                               "wall_ms", "launches")}
+              for m, t in traces.items() if t},
+           "prefill_trace": {k: pre_trace[k] for k in ("busy_ms", "idle",
+                                                       "wall_ms",
+                                                       "launches")}}
+    captures.append(out)
+    return out
+
+
+def cross_device_serving(ht, models, seed):
+    """The small f32 Llama (2 layers, hidden 256, 8/2 heads, vocab 1024)
+    served on the card and on the CPU from the same params (TF32 off):
+    the slot adapter's prefill and teacher-forced decode logits, and the
+    engines' streams on a seeded trace."""
+    from hetu_tpu_torch.serving import InferenceEngine, LlamaSlotAdapter
+    c = models.LlamaConfig(seq_len=64, **SERVE_SMALL)
+    with ht.name_scope():
+        ex_g, model_g = served_llama(ht, models, c, "small", seed,
+                                     torch.float32)
+    with ht.name_scope():
+        ex_c, model_c = served_llama(ht, models, c, "small", seed,
+                                     torch.float32, device="cpu")
+    ex_c.load_params({k: v.cpu().numpy() for k, v in ex_g.params.items()})
+    trace = serve_trace(seed + 1, 12, c.vocab_size, 8, 32, 8, 24)
+    streams = {}
+    for dev, ex, model in (("cuda", ex_g, model_g), ("cpu", ex_c, model_c)):
+        eng = InferenceEngine(ex, model, n_slots=4, max_len=64,
+                              max_prompt_len=32, name="small", device=dev)
+        streams[dev] = [r.tokens for r in serve_replay(eng, trace)["reqs"]]
+    # logits: a prompt's prefill, then each stream token teacher-forced
+    prompt, toks = trace[0][1], streams["cpu"][0]
+    logits = {}
+    for dev, ex in (("cuda", ex_g), ("cpu", ex_c)):
+        ad = LlamaSlotAdapter(c, "small")
+        k = torch.zeros(c.num_layers, 1, c.num_kv_heads, 64,
+                        c.hidden_size // c.num_heads, device=dev)
+        v = torch.zeros_like(k)
+        with torch.no_grad():
+            out = [ad.prefill(ex.params, torch.as_tensor(
+                prompt[None], device=dev), k, v,
+                torch.zeros(1, dtype=torch.long, device=dev))]
+            for i, tok in enumerate(toks[:-1]):
+                out.append(ad.decode(
+                    ex.params, torch.tensor([tok], device=dev),
+                    torch.tensor([len(prompt) + i], device=dev), k, v))
+        logits[dev] = torch.cat([o.cpu() for o in out])
+    check("cross-device f32 serving logits (prefill rows and teacher-forced "
+          "decode steps)", logits["cuda"], logits["cpu"], 5e-5,
+          "f32 on both sides (TF32 off), products and softmax sums in "
+          "another order")
+    require(f"cross-device f32 serving: the card's streams equal the CPU's "
+            f"({sum(map(len, streams['cpu']))} tokens)",
+            streams["cuda"] == streams["cpu"])
+    ex_g.close()
+    free_memory("after the cross-device serving check")
+
+
 def adamw_change_checks(label, xs, init, ex_gpu, ex_cpu, g_gpu, g_cpu, lr,
                         eps):
     """Each param's change in a first AdamW step, card against CPU.  The
@@ -3127,6 +3588,10 @@ def main():
     if failures:
         log(f"FAILED: {failures}")
         return 1
+    serving = serving_paths(ht, models, fns, rng, args.seed, captures)
+    if failures:
+        log(f"FAILED: {failures}")
+        return 1
 
     times = kernel_times(rng, fa, ce, B, S)
     torch.cuda.empty_cache()
@@ -3140,6 +3605,7 @@ def main():
     times.update(wgmma_times(fa))
     cross_device_llama(ht, models, htp, fns, rng, args.seed)
     cross_device_resnet(ht, models, rng, args.seed)
+    cross_device_serving(ht, models, args.seed)
     if failures:
         log(f"FAILED: {failures}")
         return 1
@@ -3210,7 +3676,9 @@ def main():
         + f"; moe path: {moe_ms:.3f} ms/step; "
         + "; ".join(f"{label}: {v[0]:.3f} ms/step"
                     for label, v in llama.items())
-        + f"; resnet18 path: {resnet_ms:.3f} ms/step")
+        + f"; resnet18 path: {resnet_ms:.3f} ms/step; serving path: "
+        f"{serving['tokens_per_sec']:.1f} tokens/s, decode "
+        f"{serving['decode_ms']['captured']:.3f} ms/step")
     log(json.dumps({"capture": captures}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

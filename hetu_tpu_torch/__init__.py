@@ -18,8 +18,10 @@ single-device MoE FFN training step (layers/moe.py), and Llama training
 under context parallelism (models/llama.py, parallel/: ring and Ulysses
 attention over a ``cp`` mesh axis); and ResNet-18/CIFAR training
 (models/resnet.py: convolution, pooling, BatchNorm with running stats,
-SGD and Momentum), all through the Executor.  Names of
-later slices raise ``NotImplementedError`` (ROADMAP.md).
+SGD and Momentum), all through the Executor; and slice D1, the
+continuous-batching Llama serving engine (serving/, models/llama_decode.py)
+over an executor's params.  Names of later slices raise
+``NotImplementedError`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from .ops import *  # noqa: F401,F403
 from .optim import (SGDOptimizer, MomentumOptimizer, AdamOptimizer,
                     AdamWOptimizer)
 from .optim import lr_scheduler
+from . import serving
 
 __version__ = "0.1.0"
 

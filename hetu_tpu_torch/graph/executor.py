@@ -5,7 +5,8 @@ executor jit-compiles each named subgraph into one XLA program; here one
 step function (``SubExecutor._body``) walks the subgraph's topo order op by
 op on an explicit device.  On the card that step is captured in one CUDA
 graph per signature (the subgraph and each placeholder's shape, as
-``jax.jit`` retraces on a new signature): the first call of a signature
+``jax.jit`` retraces on a new signature), each a ``Captured`` program
+(``graph/capture.py``): the first call of a signature
 runs the body eagerly on a side stream (it builds the hand-written
 kernels and settles the allocator), the second captures it on that
 stream into the subgraph's memory pool, with the executor's generator
@@ -55,8 +56,8 @@ rather than being ignored.
 
 from __future__ import annotations
 
-import contextlib
-import operator
+import concurrent.futures
+import os
 import time
 import warnings
 import zlib
@@ -64,7 +65,9 @@ import zlib
 import numpy as np
 import torch
 
-from ..ops import kernels
+# CaptureError and disable_capture are the executor's names too
+from .capture import (_CAPTURE, CaptureError, Captured, GraphPool,  # noqa: F401
+                      disable_capture)
 from .checkpoint import (CheckpointError, atomic_pickle, read_checkpoint,
                          validate_state)
 from .node import Op, PlaceholderOp, VariableOp, find_topo_sort
@@ -81,25 +84,6 @@ _LATER = {
     "numerics": "slice G (telemetry)",
 }
 _CP_IMPLS = ("ring", "ulysses")
-_CAPTURE = [True]
-
-
-@contextlib.contextmanager
-def disable_capture():
-    """Run the steps started inside eagerly, op by op, on the card too:
-    the counterpart of ``jax.disable_jit()``, for comparing a captured
-    step with its eager run and for stepping through one.  Captured
-    graphs are kept for later calls."""
-    prev = _CAPTURE[0]
-    _CAPTURE[0] = False
-    try:
-        yield
-    finally:
-        _CAPTURE[0] = prev
-
-
-class CaptureError(RuntimeError):
-    """A step could not be captured in a CUDA graph."""
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -138,17 +122,12 @@ def _to_numpy(t):
 
 
 class _Signature:
-    """One feed signature of a subgraph: its static feed buffers and, once
-    captured, its CUDA graph, the graph's outputs, the launches its
-    capture counted, the state tensors it was captured on and the bytes
-    its capture reserved."""
+    """One feed signature of a subgraph: its static feed buffers and the
+    program (``graph/capture.py``) that runs the step on them."""
 
-    def __init__(self, feeds):
+    def __init__(self, feeds, program):
         self.feeds = feeds
-        self.warm = False
-        self.graph = None
-        self.outputs = self.launches = self.bound = None
-        self.graph_bytes = 0
+        self.program = program
 
 
 class SubExecutor:
@@ -182,7 +161,9 @@ class SubExecutor:
             executor.config.get("monitor_interval", 200))
         self._runs = 0
         self._sigs = {}    # {feed shapes: _Signature}
-        self._pool = None  # the CUDA graph memory pool of this subgraph
+        # one CUDA graph memory pool for the subgraph's signatures
+        self._pool = GraphPool()
+        self._ctx = None   # the running step's TraceContext
 
     def _signature(self, feed_dict):
         """The signature of ``feed_dict``, its feeds copied into the
@@ -200,20 +181,25 @@ class SubExecutor:
         key = tuple(tuple(v.shape) for v in values)
         sig = self._sigs.get(key)
         if sig is None:
-            sig = self._sigs[key] = _Signature({
-                p: torch.empty(v.shape, dtype=torch_dtype(p.dtype),
-                               device=ex.device)
-                for p, v in zip(self.placeholders, values)})
+            feeds = {p: torch.empty(v.shape, dtype=torch_dtype(p.dtype),
+                                    device=ex.device)
+                     for p, v in zip(self.placeholders, values)}
+            sig = self._sigs[key] = _Signature(feeds, Captured(
+                f"the step of subgraph {self.name!r}",
+                lambda: self._body(feeds), ex.device, owner=ex,
+                state=self._state, pool=self._pool, where=self._failed_at,
+                on_stale=self._drop, clone_outputs=True))
         for p, v in zip(self.placeholders, values):
             sig.feeds[p].copy_(v)
         return sig
 
-    def _body(self, feeds, ctxs=None):
+    def _body(self, feeds):
         """The step: the walk on the static feeds, the recorded updates
         written into ``params`` in place, and clones of the outputs (taken
-        before those writes).  The step's TraceContext is appended to
-        ``ctxs`` when given (a capture names the failing op from it)."""
+        before those writes).  The step's TraceContext is kept (a failed
+        capture names the op it stopped at from it)."""
         ex = self.executor
+        self._ctx = None
         cast = ex._cast
         bindings = {v: cast(ex.params[v.name]) for v in self.variables}
         for p, v in feeds.items():
@@ -224,8 +210,7 @@ class SubExecutor:
             else None, mesh=ex.mesh,
             cp_impl=ex.config.get("cp_impl", "ring"))
         ctx.opt_state = ex.opt_state
-        if ctxs is not None:
-            ctxs.append(ctx)
+        self._ctx = ctx
         with (torch.enable_grad() if self.has_grads or self.training
               else torch.inference_mode()):
             vals = evaluate(self.eval_nodes, bindings, ctx, topo=self.topo)
@@ -239,11 +224,10 @@ class SubExecutor:
         return vals
 
     def _state(self):
-        """The tensors a captured step reads and writes in place, and the
-        generator it draws from."""
+        """The tensors a captured step reads and writes in place (the
+        program adds the generator it draws from)."""
         ex = self.executor
-        out = [ex.generator]
-        out += [ex.params[v.name] for v in self.variables]
+        out = [ex.params[v.name] for v in self.variables]
         for op in self.opt_ops:
             st = ex.opt_state[op.name]
             out.append(st["step"])
@@ -251,116 +235,22 @@ class SubExecutor:
                     for t in slots.values()]
         return out
 
-    def _step(self, sig):
-        """One step on ``sig``'s feeds: eager on the CPU and under
-        ``disable_capture()``; on the card the first call of a signature
-        eager, the second captured, then replays."""
-        if self.executor.device.type != "cuda" or not _CAPTURE[0]:
-            return self._body(sig.feeds)
-        if sig.graph is not None:
-            state = self._state()
-            if not (len(state) == len(sig.bound)
-                    and all(map(operator.is_, state, sig.bound))):
-                self._drop()  # a param, a slot or the generator was replaced
-        if sig.graph is None:
-            if not sig.warm:
-                sig.warm = True
-                return self._eager_on_side(sig)
-            self._capture(sig)
-        kernels.add_launches(sig.launches)
-        sig.graph.replay()
-        return [None if v is None else v.clone() for v in sig.outputs]
-
-    def _eager_on_side(self, sig):
-        cur = torch.cuda.current_stream(self.executor.device)
-        side = self.executor._side_stream()
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            vals = self._body(sig.feeds)
-        cur.wait_stream(side)
-        for v in vals:
-            if isinstance(v, torch.Tensor):
-                v.record_stream(cur)
-        return vals
-
-    def _capture(self, sig):
-        ex = self.executor
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(ex.generator)
-        if self._pool is None:
-            # one pool for the subgraph's signatures: a capture may reuse
-            # what another's freed, since no two replay at once and each
-            # replay's outputs are cloned before the next
-            self._pool = torch.cuda.graph_pool_handle()
-        gen_state = ex.generator.get_state()
-        counts = kernels.launch_counts()
-        torch.cuda.synchronize(ex.device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(ex.device)
-        ctxs = []
-        try:
-            # torch.cuda.graph's steps, with the stream restored also when
-            # the capture fails (its __exit__ skips that when capture_end
-            # raises)
-            with torch.cuda.stream(ex._side_stream()):
-                graph.capture_begin(pool=self._pool)
-                try:
-                    outputs = self._body(sig.feeds, ctxs)
-                finally:
-                    graph.capture_end()
-        except Exception as e:
-            op = ctxs[0].op if ctxs else None
-            self._abandon_pool()
-            # the generator stays in capture mode: replace it by a fresh
-            # one in the same state (the capture advanced nothing)
-            ex.generator = torch.Generator(device=ex.device)
-            ex.generator.set_state(gen_state)
-            root = e  # the op's own error, under the failed capture's end
-            while root.__context__ is not None:
-                root = root.__context__
-            raise CaptureError(
-                f"subgraph {self.name!r}: capturing its step in a CUDA "
-                f"graph failed at op {op} ({type(root).__name__}: "
-                f"{str(root).splitlines()[0] if str(root) else ''}).  A "
-                "step must not read a tensor on the host (.item(), "
-                "float(t), nonzero, a boolean mask, a shape from data); "
-                "run it under hetu_tpu_torch.disable_capture() to run it "
-                "eagerly") from e
-        finally:
-            after = kernels.launch_counts()
-            kernels.restore_launches(counts)
-        sig.launches = {k: n - counts.get(k, 0) for k, n in after.items()
-                        if n != counts.get(k, 0)}
-        sig.graph, sig.outputs, sig.bound = graph, outputs, self._state()
-        sig.graph_bytes = torch.cuda.memory_reserved(ex.device) - reserved
-
-    def _abandon_pool(self):
-        """After a failed capture: a ``capture_end`` that raises leaves the
-        allocator routing the side stream's allocations into the pool (as
-        PyTorch 2.11 does); end that, and capture later graphs into a new
-        pool."""
-        dev = self.executor.device
-        try:
-            torch._C._cuda_endAllocateToPool(
-                torch.cuda.current_device() if dev.index is None
-                else dev.index, self._pool)
-        except RuntimeError:
-            pass  # capture_end had ended it
-        self._pool = None
+    def _failed_at(self):
+        return f"at op {self._ctx.op if self._ctx is not None else None}"
 
     @property
     def graph_bytes(self):
         """The device bytes the captures of this subgraph's graphs
         reserved (their memory pool), 0 before any capture."""
-        return sum(sig.graph_bytes for sig in self._sigs.values()
-                   if sig.graph is not None)
+        return sum(sig.program.graph_bytes for sig in self._sigs.values())
 
     def _drop(self):
         """Forget this subgraph's captured graphs (the next call of each
-        signature captures anew) and their memory pool."""
+        signature captures anew) and their memory pool: a param, a slot
+        or the generator was replaced."""
         for sig in self._sigs.values():
-            sig.graph = sig.outputs = sig.launches = sig.bound = None
-        self._pool = None
+            sig.program.drop()
+        self._pool.handle = None
 
     def _advance(self, n):
         """Count ``n`` steps; check the monitors when one of them falls on
@@ -374,7 +264,7 @@ class SubExecutor:
             self.check_monitors()
 
     def run(self, feed_dict=None, convert_to_numpy_ret_vals=False):
-        vals = self._step(self._signature(feed_dict))
+        vals = self._signature(feed_dict).program()
         self._advance(1)
         return _returned(vals, convert_to_numpy_ret_vals)
 
@@ -389,7 +279,7 @@ class SubExecutor:
             raise ValueError(f"run_steps needs n >= 1, got {n}")
         sig = self._signature(feed_dict)
         for _ in range(n):
-            vals = self._step(sig)
+            vals = sig.program()
         self._advance(n)
         return _returned(vals, convert_to_numpy_ret_vals)
 
@@ -399,7 +289,8 @@ class SubExecutor:
         a step, the device synchronised at the end."""
         sig = self._signature(feed_dict)
         for _ in range(2 if self.executor.device.type == "cuda"
-                       and _CAPTURE[0] and sig.graph is None else 1):
+                       and _CAPTURE[0] and sig.program.graph is None
+                       else 1):
             self.run(feed_dict)
         _sync(self.executor.device)
         start = time.perf_counter()
@@ -471,7 +362,6 @@ class Executor:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
         self._global_step = 0
-        self._stream = None  # the side stream steps are captured on
 
         all_nodes = [n for lst in self.eval_node_dict.values() for n in lst]
         self.all_topo = find_topo_sort(all_nodes)
@@ -484,11 +374,12 @@ class Executor:
                     f"two distinct variables named {v.name!r} reach this "
                     "executor; give the models distinct `name=`s or build "
                     "them under separate `name_scope()`s")
-        self.params = {}
-        for v in self.variables:
-            gen = torch.Generator().manual_seed(init_seed(self.seed, v.name))
-            value = v.initializer(gen, v.shape, torch_dtype(v.dtype))
-            self.params[v.name] = value.to(self.device)
+        # each variable draws from its own generator, so the draws run in
+        # threads (torch releases the GIL) with the same values
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=min(8, os.cpu_count() or 1)) as pool:
+            values = list(pool.map(self._init_value, self.variables))
+        self.params = {v.name: t for v, t in zip(self.variables, values)}
         # {optimizer_op_name: state}, each optimizer initialised once;
         # _opt_ops keeps the ops in graph (construction) order
         self.opt_state = {}
@@ -501,10 +392,10 @@ class Executor:
         self.subexecutor = {name: SubExecutor(name, nodes, self)
                             for name, nodes in self.eval_node_dict.items()}
 
-    def _side_stream(self):
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        return self._stream
+    def _init_value(self, v):
+        gen = torch.Generator().manual_seed(init_seed(self.seed, v.name))
+        value = v.initializer(gen, v.shape, torch_dtype(v.dtype))
+        return value.to(self.device)
 
     def _cast(self, x):
         if self.compute_dtype is not None and x.is_floating_point():
@@ -554,6 +445,17 @@ class Executor:
         """A copy of the params: the executor updates its own tensors in
         place at every step."""
         return {k: v.clone() for k, v in self.params.items()}
+
+    def cast_params(self, dtype):
+        """Cast every floating param to ``dtype`` (e.g. bf16 for serving),
+        one at a time, so that the card holds the old dtype's copy of one
+        param at most.  The tensors are replaced: a captured step is
+        captured anew at its next call."""
+        dtype = torch_dtype(dtype)
+        for name, t in self.params.items():
+            if t.is_floating_point() and t.dtype != dtype:
+                self.params[name] = t.to(dtype)
+                del t
 
     def load_params(self, params, dtype=None):
         """Replace every param from a JAX executor's ``params`` converted

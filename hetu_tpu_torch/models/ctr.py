@@ -4,7 +4,7 @@ DCN and DLRM over one shared sparse-feature table, standard or packed.
 Variable names and layouts match the JAX package, so its params carry
 across by name (weights.py); a packed table is [p_rows, 128] in both.  The
 parameter-server table (``ps_embedding=``) arrives with slice B2 and the
-serving scorer ``make_wdl_scorer`` with slice D (ROADMAP.md).
+serving scorer ``make_wdl_scorer`` with slice D2 (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -279,7 +279,8 @@ class DLRM:
 
 def make_wdl_scorer(model):
     """The serving scorer over pre-gathered rows (serving/embedding/ in
-    the JAX package) arrives with slice D of the port."""
+    the JAX package) arrives with slice D2 (the embedding server) of the
+    port."""
     raise NotImplementedError(
         "make_wdl_scorer (the embedding server's scorer) arrives with "
-        "slice D (serving) of the port (ROADMAP.md)")
+        "slice D2 (the embedding server) of the port (ROADMAP.md)")

@@ -127,7 +127,7 @@ def test_host_table_and_load_rows_roundtrip(packed):
 def test_ctr_later_slices_raise():
     with pytest.raises(NotImplementedError, match="slice B2"):
         pctr.WDL(ROWS, ps_embedding=object())
-    with pytest.raises(NotImplementedError, match="slice D"):
+    with pytest.raises(NotImplementedError, match="slice D2"):
         pctr.make_wdl_scorer(pctr.WDL(ROWS))
     with pytest.raises(ValueError, match="128 lanes"):
         pctr.WDL(ROWS, embedding_dim=24, packed_embedding=True)

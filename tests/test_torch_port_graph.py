@@ -204,9 +204,14 @@ def _port_sources():
 
 def test_port_imports_no_jax_nor_hetu_tpu():
     sources = list(_port_sources())
-    # the walk reaches every slice's modules, the MoE slice's among them
+    # the walk reaches every slice's modules, the MoE slice's and the
+    # serving slice's among them
     for module in ("ops/moe.py", "layers/moe.py",
-                   "ops/kernels/moe_dispatch.py", "ops/losses.py"):
+                   "ops/kernels/moe_dispatch.py", "ops/losses.py",
+                   "serving/engine.py", "serving/scheduler.py",
+                   "serving/kv_cache.py", "serving/adapters.py",
+                   "metrics.py", "models/_decode_common.py",
+                   "models/llama_decode.py", "graph/capture.py"):
         assert os.path.join(ROOT, "hetu_tpu_torch", module) in sources
     bad = []
     for path in sources:
@@ -228,7 +233,9 @@ def test_port_imports_no_jax_nor_hetu_tpu():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, hetu_tpu_torch, hetu_tpu_torch.models, "
             "hetu_tpu_torch.layers.moe, "
-            "hetu_tpu_torch.ops.kernels.moe_dispatch; "
+            "hetu_tpu_torch.ops.kernels.moe_dispatch, "
+            "hetu_tpu_torch.serving, hetu_tpu_torch.metrics, "
+            "hetu_tpu_torch.models.llama_decode; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'hetu_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

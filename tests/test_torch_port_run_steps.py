@@ -318,6 +318,32 @@ def test_disable_capture_is_a_scoped_switch():
     assert issubclass(pt.CaptureError, RuntimeError)
 
 
+def test_each_signature_runs_as_one_captured_program():
+    """The executor's steps go through ``graph/capture.py``'s
+    ``Captured``, the port's one capture mechanism: a program a feed
+    signature, a subgraph's programs in one memory pool, the state they
+    are bound to the params (the program adds the generator)."""
+    from hetu_tpu_torch.graph.capture import Captured
+    x = pt.placeholder_op("cap_x", (2, 3))
+    w = pt.Variable("cap_w", shape=(3,),
+                    initializer=pt.init.normal(0.0, 0.1))
+    ex = pt.Executor({"f": [pt.reduce_sum_op(x * w, axes=[1])]},
+                     device="cpu")
+    sub = ex.subexecutor["f"]
+    a = ex.run("f", {x: np.ones((2, 3), np.float32)})[0]
+    b = ex.run("f", {x: np.ones((4, 3), np.float32)})[0]
+    ex.run("f", {x: np.ones((2, 3), np.float32)})
+    assert a.shape == (2,) and b.shape == (4,)
+    progs = [sig.program for sig in sub._sigs.values()]
+    assert len(progs) == 2
+    assert all(isinstance(p, Captured) for p in progs)
+    assert all(p.pool is sub._pool and p.owner is ex for p in progs)
+    assert [p.builds for p in progs] == [1, 1]  # the CPU: built once
+    state = progs[0].state()
+    assert len(state) == 1 and state[0] is ex.params["cap_w"]
+    assert sub.graph_bytes == 0  # nothing captured on the CPU
+
+
 def test_disable_capture_steps_equal_default_steps_on_the_cpu():
     nodes, feed = _bert()
     ex1 = pt.Executor(nodes, device="cpu", seed=6)
