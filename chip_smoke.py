@@ -15,14 +15,20 @@ Phases, each fatal on failure (exit 1, no result lines):
    that spills).
 2. Kernels against their plain PyTorch versions on the card, on the same
    inputs: the dropout keep bits bitwise, of the helper and inside the
-   wgmma forward, dQ and dK/dV kernels; two launches of each wgmma kernel
-   give the same bits (at BERT's, Llama's, ragged and the d = 128 block
-   shapes, and the empty, diagonal and full blocks' dK/dV, the full one
-   also against its plain version); the flash forward (with and without
-   dropout), dQ, dK/dV
+   wgmma forward, dQ and dK/dV kernels (d = 64 and 128) and the mma.sync
+   ones at GPT-3 2.7B's d = 80; two launches of each wgmma and mma.sync
+   kernel give the same bits (at BERT's, Llama's, ragged, the d = 128
+   block and GPT's shapes, and the empty, diagonal and full blocks' dK/dV,
+   the full one also against its plain version); the flash forward (with
+   and without dropout), dQ, dK/dV
    and the CE forward and backward at the main paths' shapes (the wgmma
    route for bf16 heads of 64 and 128) and at ragged, causal,
    fully-masked, d = 96 (the mma.sync route), wide-head and f32 ones;
+   at GPT's causal shapes, GPT-small's [8,12,1024,64] at keep 0.9 (wgmma)
+   and GPT-3 2.7B's [2,32,2048,80] at keep 0.9 and 1 (mma.sync), each on
+   its route, dQ, dK and dV within the spread of their bf16 terms; the
+   CE at GPT's V = 50257, [8192,50257] and
+   [4096,50257] bf16, with out-of-range labels (loss = lse there);
    ``pack_write`` at the W&D shapes (uniform, Zipf-skewed at M = 3328 and
    65,536, negative, out-of-range and tail-line ids, Criteo's table, no
    ids), bitwise against ``pack_write_ordered`` (its summation tree) on
@@ -102,14 +108,14 @@ Phases, each fatal on failure (exit 1, no result lines):
       4096, 32 heads, 8 KV heads, FFN 14336) at B=1 S=8192 under cp=4: 2
       warm-up and 3 timed steps.
    f. Each path (BERT eval and train, W&D at both sizes, bench_moe and
-      the Mixtral layer, Llama cp=4 and mesh-less, the witness, and g's
-      ResNet-18), on its executor: 5 steps under ``disable_capture()`` and 5 captured
+      the Mixtral layer, Llama cp=4 and mesh-less, the witness, g's
+      ResNet-18 and i's two GPTs), on its executor: 5 steps under ``disable_capture()`` and 5 captured
       steps from the same state (3 each for the Mixtral layer and the
       witness) must give bitwise equal losses and checkpoints (params,
       optimizer steps and slots, generator state, step count);
       ``run_steps(..., 20)`` must equal 20 ``run()`` calls bitwise (the
-      last loss and the checkpoint; 5 for the Mixtral layer and the
-      witness); eager and captured ms/step in
+      last loss and the checkpoint; 5 for the Mixtral layer, the
+      witness and GPT-3 2.7B's widths); eager and captured ms/step in
       alternating turns (eager, captured, captured, eager, twice), peak
       memory (captured: allocated plus the graph pool), and traced
       windows of each in turns: busy time, idle share, launches.  A ``{"capture":
@@ -150,11 +156,29 @@ Phases, each fatal on failure (exit 1, no result lines):
       serving the trace's first request alone, bitwise.  The programs'
       replays add the launches their captures counted, as the executor's
       do, so the counters see what a captured prefill or step launches.
+   i. GPT causal-LM training (slice C1): ``GPTLMHeadModel(...).loss(ids,
+      labels)`` (tied head, masked-mean CE), ``AdamWOptimizer(1e-4,
+      weight_decay=0.01)``, ``Executor({"train": [loss, train_op]},
+      compute_dtype=bfloat16)`` over f32 masters, dropout 0.1 (hidden, and
+      attention in the flash kernels), Zipf ids rolled by one as labels.
+      i1: bench_gpt_e2e's GPT-small (hidden 768, 12 layers, 12 heads, V =
+      50257) at B=8 S=1024, nothing cut: 3 warm-up and ``--steps`` timed
+      steps, per step 12 forward, 12 dQ and 12 dK/dV launches on the
+      wgmma kernels and 1 CE forward and backward; samples/s, tokens/s,
+      ms/step, peak memory; phase f.  i2: GPT-3 2.7B's published widths
+      (hidden 2560, 32 heads of d = 80, FFN 10240, V = 50257) at
+      bench_gpt_layer's B=2 S=2048, 8 of its 32 layers: 2 warm-up and 3
+      timed steps, 8/8/8 launches a step on the mma.sync kernels and none
+      on wgmma, 1/1 CE; phase f at the witness's counts (3 steps,
+      ``run_steps(5)``).
    Each path's step is broken down by kernel class under torch.profiler.
    Then each kernel is timed at the paths' shapes beside its bound, its
    plain version and one PyTorch library call (a yardstick only; the port
-   never calls it): the CE forward also under each launch of its sweep
-   (rows a program, chunk width, warps, stages); ``pack_write`` also under
+   never calls it; the self-attention and CE kernels and yardsticks each
+   20 calls captured in one CUDA graph, the least of 3 replays, so that
+   no reading holds the host's cost of a call): the CE forward also
+   under each launch of its sweep (rows a program, chunk width, warps,
+   stages); ``pack_write`` also under
    Zipf ids at M = 3328 and 65,536 against ``index_add_`` in turns;
    ``row_gather``'s step also against ``index_select`` in alternating
    turns, and beside a read-only pass over the bytes each gather reads
@@ -162,8 +186,9 @@ Phases, each fatal on failure (exit 1, no result lines):
    Then one f32 training step of BERT (batch 2, 2 layers, full widths,
    dropout off), one of W&D (337,000 rows), one of a small
    MoE layer (H=128, F=256, 4 experts, 64 tokens), one of a small
-   Llama under cp=4 (2 layers, hidden 256, 4 heads, 2 KV heads, S=1024)
-   and one of ResNet-18 at B=8 run from the same params on the card
+   Llama under cp=4 (2 layers, hidden 256, 4 heads, 2 KV heads, S=1024),
+   one of ResNet-18 at B=8 and one of a small GPT (2 layers, hidden 256,
+   4 heads, V=1024, S=256, dropout off) run from the same params on the card
    (kernels, cuDNN) and on the CPU (plain versions): loss, every gradient
    and every updated param (ResNet's running stats too) are compared; and
    a small f32 Llama (2 layers, hidden 256, 8/2 heads, vocab 1024) served
@@ -173,11 +198,18 @@ Phases, each fatal on failure (exit 1, no result lines):
    [1,32,2048,128] bf16, for the full, diagonal and empty blocks, beside
    scaled_dot_product_attention (the yardstick) and its backward; the
    wgmma forward, dQ and dK/dV at the mesh-less Llama's causal
-   [8,12,1024,64].
-4. Result: the {"capture": [...]} line, a {"kernels": [...]} JSON line
-   (the ten kernels of the TPU kernels' entry points and the three wgmma
-   kernels, launches from the captured steps of the paths), the
-   nvidia-smi line, and last {"ok": true, "device": {...}}.
+   [8,12,1024,64], and at keep 0.9 (GPT-small's); the mma.sync ones at
+   GPT-3 2.7B's causal [2,32,2048,80] at keep 1 and 0.9, beside the
+   causal scaled_dot_product_attention and its backward; BERT's dQ and
+   dK/dV at keep 1 beside keep 0.9; the CE forward and backward at
+   GPT-small's [8192,50257] beside cross_entropy.
+4. Result: the run's seconds, a {"gpt_flash": [...]} line (path i's
+   flash kernels by route at GPT's shapes: launches of the path that runs
+   each, ms, plain ms, bound and sdpa's time), the {"capture": [...]}
+   line, a {"kernels": [...]} JSON line (the ten kernels of the TPU
+   kernels' entry points and the three wgmma kernels, launches from the
+   captured steps of the paths, path i's among them, on both flash
+   routes), the nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -303,6 +335,43 @@ def time_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=20, windows=3, prep=None):
+    """Device time of ``fn`` in ms per call, without its host cost:
+    ``iters`` calls captured once in one CUDA graph, the graph replayed
+    ``windows`` times under CUDA events, the least reading.  For calls
+    whose launches cost the host longer than their kernels take the card
+    (an autograd backward read 0.45 ms by back-to-back events at two
+    shapes 2.7x apart in work), and for the kernels held against them.
+    ``prep``: run once on the capture's stream before it, its result
+    passed to ``fn`` (an autograd forward, so that its backward, which
+    runs on its forward's stream, is captured)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        state = prep() if prep else None
+        call = (lambda: fn(state)) if prep else fn  # noqa: E731
+        for _ in range(2):
+            call()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(iters):
+                call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()  # a warm-up replay
+    readings = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        readings.append(start.elapsed_time(end) / iters)
+    del graph, state
+    torch.cuda.empty_cache()
+    return min(readings)
 
 
 def device_ms(fn, iters=100, cold=False):
@@ -469,20 +538,23 @@ def dropout_checks(rng, fa):
 WGMMA_ERR = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
 
 
-def wgmma_dropout_checks(rng, fa):
+def kernel_dropout_checks(rng, fa):
     """Phase 2a': the keep bits inside the wgmma forward, dQ and dK/dV
-    kernels, bitwise.  With q = 0 every key of a row has p = 1/S; with V
+    kernels (d = 64 and 128) and inside the mma.sync ones at GPT-3 2.7B's
+    d = 80, bitwise.  With q = 0 every key of a row has p = 1/S; with V
     (and K for dQ) holding the identity on keys [p d, (p + 1) d) and zeros
     elsewhere, o[i, c] = keep(i, p d + c) / (keep S), and with dO = 1 and D
     = 0, dQ[i, c] = scale keep(i, p d + c) / (keep S): nonzero exactly
     where the key is kept.  For dK/dV, dO holds the identity on rows [p d,
     (p + 1) d) instead, so dV[key, c] = keep(p d + c, key) / (keep S):
-    nonzero exactly where row p d + c keeps the key.  Compared with the
-    plain hash's bits over every (row, key)."""
-    B, H, S, keep = 2, 3, 256, 0.9
+    nonzero exactly where row p d + c keeps the key.  S is a whole number
+    of d-key blocks.  Compared with the plain hash's bits over every (row,
+    key)."""
+    B, H, keep = 2, 3, 0.9
     bf = torch.bfloat16
-    for D in (64, 128):
-        assert all(fa.flash_route(kern, bf, D, S, S) == "wgmma"
+    for D, S, route in ((64, 256, "wgmma"), (128, 256, "wgmma"),
+                        (80, 320, "mma")):
+        assert all(fa.flash_route(kern, bf, D, S, S) == route
                    for kern in ("fwd", "dq", "dkv"))
         seed = seed_tensor(rng)
         want = fa.dropout_keep_mask_plain(seed, B * H, S, S, keep).reshape(
@@ -512,25 +584,35 @@ def wgmma_dropout_checks(rng, fa):
         for label, got in (("forward", got_o), ("dQ", got_dq),
                            ("dK/dV", got_dv)):
             diff = int((got != want).sum())
-            log(f"check wgmma {label} d={D} dropout keep bits [{B * H},{S},"
-                f"{S}]: {diff} of {got.numel()} differ")
-            require(f"wgmma {label} d={D} keep bits bitwise equal to the "
+            log(f"check {route} {label} d={D} dropout keep bits [{B * H},"
+                f"{S},{S}]: {diff} of {got.numel()} differ")
+            require(f"{route} {label} d={D} keep bits bitwise equal to the "
                     "plain hash", diff == 0)
 
 
-def wgmma_repeat_checks(rng, fa):
-    """Phase 2a'': two launches of each wgmma kernel on the same inputs
-    give the same bits (no atomics, no order that varies): the forward, dQ
-    and dK/dV at BERT's, Llama's, the d = 128 block's and ragged shapes,
-    then the blockwise dK/dV at the witness's empty, diagonal and full
-    blocks, the full one also against its plain version."""
+# GPT's attention (path i): GPT-small's causal heads with dropout on the
+# wgmma kernels; GPT-3 2.7B's d = 80 heads (bench_gpt_layer's [2,32,2048,80],
+# bench.py:198) on the mma.sync kernels, with and without dropout
+GPT_FLASH = (((8, 12, 1024, 64), 0.9, "wgmma"),
+             ((2, 32, 2048, 80), 0.9, "mma"),
+             ((2, 32, 2048, 80), 1.0, "mma"))
+
+
+def flash_repeat_checks(rng, fa):
+    """Phase 2a'': two launches of each wgmma and mma.sync kernel on the
+    same inputs give the same bits (no atomics, no order that varies): the
+    forward, dQ and dK/dV at BERT's, Llama's, the d = 128 block's, ragged
+    and GPT's (``GPT_FLASH``) shapes, then the blockwise dK/dV at the
+    witness's empty, diagonal and full blocks, the full one also against
+    its plain version."""
     bf = torch.bfloat16
     for (B, H, S, D), causal, masked, keep in (
             ((64, 12, 512, 64), False, True, 0.9),
             ((8, 12, 1024, 64), True, False, 1.0),
             ((1, 32, 2048, 128), False, False, 1.0),
             ((2, 3, 200, 64), False, True, 0.9),
-            ((2, 3, 1000, 128), True, False, 1.0)):
+            ((2, 3, 1000, 128), True, False, 1.0),
+            *((shape, True, False, keep) for shape, keep, _ in GPT_FLASH)):
         q, k, v, do = (randn(rng, (B, H, S, D), bf) for _ in range(4))
         mask = bert_mask(rng, B, S, "cuda") if masked else None
         seed = seed_tensor(rng) if keep < 1.0 else None
@@ -544,9 +626,11 @@ def wgmma_repeat_checks(rng, fa):
                     q, k, v, do, lse, dsum, **kw)))
         torch.cuda.synchronize()
         same = [torch.equal(a, b) for a, b in zip(*runs)]
-        require(f"wgmma [{B},{H},{S},{D}] causal={causal} keep {keep}: two "
+        route = fa.flash_route("fwd", bf, D, S, S)
+        require(f"{route} [{B},{H},{S},{D}] causal={causal} keep {keep}: two "
                 f"launches give the same bits (o, lse, dq, dk, dv: {same})",
                 all(same))
+        del q, k, v, do, runs
     B, H, S, D = 1, 32, 2048, 128
     assert fa.flash_route("dkv", bf, D, S, S) == "wgmma"
     q, k, v, do = (randn(rng, (B, H, S, D), bf) for _ in range(4))
@@ -580,8 +664,10 @@ def wgmma_repeat_checks(rng, fa):
 
 
 def flash_fwd_checks(rng, fa):
-    """Phase 2b: the CUDA flash forward against its plain version."""
-    def case(label, B, H, S, D, dtype, mask=None, causal=False, keep=1.0):
+    """Phase 2b: the CUDA flash forward against its plain version; at
+    GPT's shapes (``GPT_FLASH``) each on its route."""
+    def case(label, B, H, S, D, dtype, mask=None, causal=False, keep=1.0,
+             route=None):
         q, k, v = (randn(rng, (B, H, S, D), dtype) for _ in range(3))
         seed = seed_tensor(rng) if keep < 1.0 else None
         o, lse = fa.flash_attention_fwd(q, k, v, mask=mask, causal=causal,
@@ -590,11 +676,13 @@ def flash_fwd_checks(rng, fa):
         o_p, lse_p = fa.flash_attention_plain(q, k, v, mask=mask,
                                               causal=causal,
                                               dropout_keep=keep, seed=seed)
-        route = fa.flash_route("fwd", dtype, D, S, S)
-        name = f"flash fwd {label} {str(dtype).split('.')[-1]} ({route})"
+        got = fa.flash_route("fwd", dtype, D, S, S)
+        name = f"flash fwd {label} {str(dtype).split('.')[-1]} ({got})"
+        if route:
+            require(f"{name}: the {route} route", got == route)
         err = check(f"{name} o", o, o_p, *FWD_TOL[dtype])
         check(f"{name} lse", lse, lse_p, *LSE_TOL)
-        if route == "wgmma":
+        if got == "wgmma":
             WGMMA_ERR["fwd"] = max(WGMMA_ERR["fwd"], err)
         return o, lse, err
 
@@ -637,13 +725,21 @@ def flash_fwd_checks(rng, fa):
         # more (batch, head) pairs than the 65535 blocks of a grid's y axis
         case("[4100,16,128,32] many-heads", 4100, 16, 128, 32, dtype,
              mask=bert_mask(rng, 4100, 128, "cuda"))
+    for (B, H, S, D), keep, route in GPT_FLASH:
+        case(f"[{B},{H},{S},{D}] causal keep {keep}", B, H, S, D,
+             torch.bfloat16, causal=True, keep=keep, route=route)
+        torch.cuda.empty_cache()
     return errs
 
 
 def flash_bwd_checks(rng, fa):
     """Phase 2c: the dQ and dK/dV kernels against the plain backward, from
-    the same forward outputs (o, lse) and cotangent."""
-    def case(label, B, H, S, D, dtype, mask=None, causal=False, keep=1.0):
+    the same forward outputs (o, lse) and cotangent; at GPT's shapes
+    (``GPT_FLASH``) each on its route and within the spread of the bf16
+    terms of each entry (``spread``, causal and unmasked only), as the
+    block checks hold them: short causal rows make terms of ~1."""
+    def case(label, B, H, S, D, dtype, mask=None, causal=False, keep=1.0,
+             route=None, spread=False):
         q, k, v, do = (randn(rng, (B, H, S, D), dtype) for _ in range(4))
         seed = seed_tensor(rng) if keep < 1.0 else None
         o, lse = fa.flash_attention_fwd(q, k, v, mask=mask, causal=causal,
@@ -655,13 +751,33 @@ def flash_bwd_checks(rng, fa):
         plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, mask=mask,
                                              causal=causal,
                                              dropout_keep=keep, seed=seed)
-        route = fa.flash_route("dq", dtype, D, S, S)
+        route_dq = fa.flash_route("dq", dtype, D, S, S)
         route_kv = fa.flash_route("dkv", dtype, D, S, S)
-        name = (f"flash bwd {label} {str(dtype).split('.')[-1]} (dq {route}"
-                f", dkv {route_kv})")
-        errs = [check(f"{name} {g}", got, want, *BWD_TOL[dtype])
-                for g, got, want in zip(("dq", "dk", "dv"), grads, plain)]
-        if route == "wgmma":
+        name = (f"flash bwd {label} {str(dtype).split('.')[-1]} (dq "
+                f"{route_dq}, dkv {route_kv})")
+        if route:
+            require(f"{name}: the {route} route",
+                    route == route_dq == route_kv)
+        if spread:
+            drop = None if keep >= 1.0 else (fa.dropout_keep_mask_plain(
+                seed, B * H, S, S, keep).reshape(B, H, S, S).float(), keep)
+            spreads = bwd_spread(q, k, v, do, lse,
+                                 (do.float() * o.float()).sum(-1), 0, 0,
+                                 drop=drop)
+            del drop
+            atol, _, rtol = BWD_TOL[dtype]
+            errs = [check_spread(
+                f"{name} {g}", got, want, atol, rtol, sp,
+                "both sides round dS and P~ to bf16 before their products; "
+                "a term whose f32 value the two compute in another order "
+                "may round one ulp apart")
+                for g, got, want, sp in zip(("dq", "dk", "dv"), grads, plain,
+                                            spreads)]
+        else:
+            errs = [check(f"{name} {g}", got, want, *BWD_TOL[dtype])
+                    for g, got, want in zip(("dq", "dk", "dv"), grads,
+                                            plain)]
+        if route_dq == "wgmma":
             WGMMA_ERR["dq"] = max(WGMMA_ERR["dq"], errs[0])
         if route_kv == "wgmma":
             WGMMA_ERR["dkv"] = max(WGMMA_ERR["dkv"], *errs[1:])
@@ -704,6 +820,11 @@ def flash_bwd_checks(rng, fa):
              dtype, causal=True, keep=0.9)
         case("[1,2,256,512] widest-head", 1, 2, 256, 512, dtype,
              mask=bert_mask(rng, 1, 256, "cuda"))
+    for (B, H, S, D), keep, route in GPT_FLASH:
+        case(f"[{B},{H},{S},{D}] causal keep {keep}", B, H, S, D,
+             torch.bfloat16, causal=True, keep=keep, route=route,
+             spread=True)
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -711,10 +832,12 @@ def _name(dtype):
     return str(dtype).split(".")[-1]
 
 
-def bwd_spread(q, k, v, do, lse, dsum, q_off, k_off, ring=None):
+def bwd_spread(q, k, v, do, lse, dsum, q_off, k_off, ring=None, drop=None):
     """Per entry of (dq, dk, dv) of the blockwise backward: the sum of the
-    sizes of its terms (|dS| |K| scale, |dS|^T |Q| scale, P^T |dO|) over
-    each rank's block pair, in f32."""
+    sizes of its terms (|dS| |K| scale, |dS|^T |Q| scale, P~^T |dO|) over
+    each rank's block pair, in f32.  With dropout, ``drop`` = (m, keep), m
+    the keep bits as f32 [B, H, Sq, Sk]: P~ = P m / keep and dS = P (m dP
+    / keep - D)."""
     n, r = ring or (1, 0)
     gq, gk = q.shape[2] // n, k.shape[2] // n
     scale = q.shape[-1] ** -0.5
@@ -729,10 +852,15 @@ def bwd_spread(q, k, v, do, lse, dsum, q_off, k_off, ring=None):
         p = torch.exp(qf @ kf.transpose(-1, -2) * scale
                       - lse[:, :, qs, None]).masked_fill(
                           keys[None, :] > rows[:, None], 0.0)
-        ds = (p * (dof @ vf.transpose(-1, -2) - dsum[:, :, qs, None])).abs()
+        dp = dof @ vf.transpose(-1, -2)
+        if drop is not None:
+            p_kept = p * drop[0][:, :, qs, ks] / drop[1]
+            dp = dp * drop[0][:, :, qs, ks] / drop[1]
+        ds = (p * (dp - dsum[:, :, qs, None])).abs()
         out[0][:, :, qs] = scale * ds @ kf.abs()
         out[1][:, :, ks] = scale * ds.transpose(-1, -2) @ qf.abs()
-        out[2][:, :, ks] = p.transpose(-1, -2) @ dof.abs()
+        out[2][:, :, ks] = (p if drop is None else p_kept).transpose(
+            -1, -2) @ dof.abs()
     return out
 
 
@@ -842,7 +970,9 @@ def block_checks(rng, fa):
 
 def ce_checks(rng, ce):
     """Phase 2d: the Triton CE forward and backward against their plain
-    versions, ~15% ignored labels."""
+    versions, ~15% ignored labels; at GPT's vocab of 50257 (24 chunks of
+    2048 and a 1105-wide tail) also ~1% of labels out of range (past V,
+    or negative and not ignored), which pick no logit."""
     why = "f32 online max/sum-exp over the same upcast values; order differs"
     bwd_tol = {torch.bfloat16: (1e-6, "the same f32 formula on both sides; "
                                 "exp may differ in its last f32 bit, which "
@@ -851,10 +981,15 @@ def ce_checks(rng, ce):
                torch.float32: (1e-6, "the same f32 formula; exp may differ "
                                "in its last bits", 1e-5)}
 
-    def case(N, V, dtype):
+    def case(N, V, dtype, out_of_range=False):
         x = randn(rng, (N, V), torch.float32).mul_(3.0).to(dtype)
         labels = rng.integers(0, V, N)
         labels[rng.random(N) < 0.15] = -1
+        if out_of_range:
+            far = rng.random(N) < 0.01
+            labels[far] = np.where(rng.random(far.sum()) < 0.5,
+                                   rng.integers(V, 2 * V, far.sum()),
+                                   rng.integers(-1000, -1, far.sum()))
         labels = torch.from_numpy(labels.astype(np.int32)).cuda()
         g = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).cuda()
         loss, lse = ce.softmax_ce_fwd(x, labels)
@@ -862,15 +997,23 @@ def ce_checks(rng, ce):
         torch.cuda.synchronize()
         loss_p, lse_p = ce.softmax_ce_plain(x, labels)
         dx_p = ce.softmax_ce_bwd_plain(x, labels, lse, g)
-        name = f"ce [{N},{V}] {str(dtype).split('.')[-1]}"
+        name = (f"ce [{N},{V}] {str(dtype).split('.')[-1]}"
+                + (" out-of-range labels" if out_of_range else ""))
         err = check(f"{name} loss", loss, loss_p, 2e-4, why)
         check(f"{name} lse", lse, lse_p, 2e-4, why)
         err_bwd = check(f"{name} dx", dx, dx_p, *bwd_tol[dtype])
         require(f"{name} dx zero on ignored rows and in the logits' dtype",
                 bool((dx[labels == -1] == 0).all()) and dx.dtype == dtype)
+        if out_of_range:
+            far = ((labels < -1) | (labels >= V)).cpu()
+            require(f"{name}: loss = lse on the {int(far.sum())} rows whose "
+                    "label is out of range", bool(far.any()) and torch.equal(
+                        loss.cpu()[far], lse.cpu()[far]))
         return err, err_bwd
 
     errs = case(8192, 30522, torch.bfloat16)
+    for n in (8192, 4096):  # GPT-small's and GPT-3 2.7B's LM-head rows
+        case(n, 50257, torch.bfloat16, out_of_range=True)
     case(300, 3000, torch.bfloat16)
     case(300, 3000, torch.float32)
     return errs
@@ -1589,8 +1732,33 @@ def capture_negative_check(ht):
     free_memory("after the capture negative check")
 
 
+def backward_ms(f, inputs, cotangent):
+    """The backward alone of the library call ``f(*inputs)`` (the
+    gradients of every input), its forward run once before the capture:
+    ``graph_ms``."""
+    def forward():
+        xs = [t.detach().requires_grad_() for t in inputs]
+        return f(*xs), xs
+    return graph_ms(lambda fx: torch.autograd.grad(
+        fx[0], fx[1], cotangent, retain_graph=True), prep=forward)
+
+
+def yardstick_floor(name, ms, ops):
+    """A library call's ``graph_ms`` reading below the least time of its
+    bf16 products would mean that some of its kernels ran outside the
+    captured graph."""
+    least = ops / PEAK_OPS[torch.bfloat16] * 1e3
+    require(f"{name} {ms:.4f} ms is no less than its products' least time "
+            f"{least:.4f} ms (every kernel inside the graph)", ms >= least)
+
+
 def kernel_times(rng, fa, ce, B, S):
-    """Each kernel at the paths' shapes: ms, bound, plain ms, library ms."""
+    """Each kernel at the paths' shapes: ms, bound, plain ms, library ms
+    (kernels and library calls each captured in a CUDA graph,
+    ``graph_ms``: back-to-back events timed an sdpa backward's host, and
+    the profiler's device time, ``device_ms``, dropped kernels of these
+    calls); BERT's dQ and dK/dV also at keep 1, like for like with sdpa's
+    backward."""
     H, D = 12, 64
     bf = torch.bfloat16
     q, k, v, do = (torch.randn(B, H, S, D, device="cuda", dtype=bf)
@@ -1601,13 +1769,13 @@ def kernel_times(rng, fa, ce, B, S):
     out = {}
     fwd = lambda keep: fa.flash_attention_fwd(  # noqa: E731
         q, k, v, mask=mask, dropout_keep=keep, seed=seed)
-    t_fwd = time_ms(lambda: fwd(0.9), 20)
-    t_fwd_eval = time_ms(lambda: fwd(1.0), 20)
+    t_fwd = graph_ms(lambda: fwd(0.9))
+    t_fwd_eval = graph_ms(lambda: fwd(1.0))
     t_plain = time_ms(lambda: fa.flash_attention_plain(
         q, k, v, mask=mask, dropout_keep=0.9, seed=seed), 3)
     mask_bf16 = mask.to(bf)
-    t_lib = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask_bf16), 20)
+    t_lib = graph_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask_bf16))
     out["flash_attention_fwd"] = dict(
         ms=t_fwd, plain_ms=t_plain, library_ms=t_lib,
         bound=bound(4 * n * 2 + mask.numel() * 4 + B * H * S * 4,
@@ -1615,18 +1783,32 @@ def kernel_times(rng, fa, ce, B, S):
     log(f"kernel flash_attention_fwd [64,12,512,64] bf16: keep 0.9 "
         f"{t_fwd:.4f} ms, keep 1.0 {t_fwd_eval:.4f} ms")
 
+    bwd = {}  # keep -> (dQ ms, dK/dV ms)
+    for keep in (0.9, 1.0):
+        o, lse = fwd(keep)
+        dsum = (do.float() * o.float()).sum(-1)
+        kw = dict(mask=mask, dropout_keep=keep, seed=seed)
+        bwd[keep] = (
+            graph_ms(lambda: fa.flash_attention_bwd_dq(
+                q, k, v, do, lse, dsum, **kw)),
+            graph_ms(lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, do, lse, dsum, **kw)))
+    log(f"kernel flash_attention_bwd [64,12,512,64] bf16: keep 0.9 dQ "
+        f"{bwd[0.9][0]:.4f} ms, dK/dV {bwd[0.9][1]:.4f} ms; keep 1.0 dQ "
+        f"{bwd[1.0][0]:.4f} ms, dK/dV {bwd[1.0][1]:.4f} ms (like for like "
+        "with scaled_dot_product_attention's backward, which drops nothing)")
+    t_dq, t_dkv = bwd[0.9]
     o, lse = fwd(0.9)
     dsum = (do.float() * o.float()).sum(-1)
-    t_dq = time_ms(lambda: fa.flash_attention_bwd_dq(
-        q, k, v, do, lse, dsum, mask=mask, dropout_keep=0.9, seed=seed), 20)
-    t_dkv = time_ms(lambda: fa.flash_attention_bwd_dkv(
-        q, k, v, do, lse, dsum, mask=mask, dropout_keep=0.9, seed=seed), 20)
     t_bwd_plain = time_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, o, lse, do, mask=mask, dropout_keep=0.9, seed=seed), 3)
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    o_lib = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask_bf16)
-    t_bwd_lib = time_ms(lambda: torch.autograd.grad(
-        o_lib, (qg, kg, vg), do, retain_graph=True), 20)
+    t_bwd_lib = backward_ms(lambda *x: F.scaled_dot_product_attention(
+        *x, attn_mask=mask_bf16), (q, k, v), do)
+    # the forward's two products; the backward's five (QK^T again, dO V^T,
+    # P^T dO, dS K, dS^T Q)
+    yardstick_floor(f"sdpa [{B},{H},{S},{D}]", t_lib, 4 * B * H * S * S * D)
+    yardstick_floor(f"sdpa backward [{B},{H},{S},{D}]", t_bwd_lib,
+                    10 * B * H * S * S * D)
     small = B * H * S * 4 * 2 + mask.numel() * 4  # lse, D, mask
     out["flash_attention_bwd_dq"] = dict(
         ms=t_dq, plain_ms=t_bwd_plain, library_ms=t_bwd_lib,
@@ -1634,55 +1816,65 @@ def kernel_times(rng, fa, ce, B, S):
     out["flash_attention_bwd_dkv"] = dict(
         ms=t_dkv, plain_ms=t_bwd_plain, library_ms=t_bwd_lib,
         bound=bound(6 * n * 2 + small, 8 * B * H * S * S * D, bf))
-    del q, k, v, do, o, lse, dsum, qg, kg, vg, o_lib
+    del q, k, v, do, o, lse, dsum
 
-    N, V = B * S // 4, 30522
+    out.update(ce_times(rng, ce, B * S // 4, 30522, sweep=True))
+    library = {"flash_attention_fwd": "scaled_dot_product_attention",
+               "flash_attention_bwd_dq": "scaled_dot_product_attention "
+                                         "backward (dq, dk, dv; no dropout)",
+               "flash_attention_bwd_dkv": "scaled_dot_product_attention "
+                                          "backward (dq, dk, dv; no dropout)"}
+    for name, lib in library.items():
+        r = out[name]
+        log(f"kernel {name} [64,12,512,64] bf16 keep 0.9: {r['ms']:.4f} ms, "
+            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), plain "
+            f"{r['plain_ms']:.4f} ms, {lib} {r['library_ms']:.4f} ms")
+    return out
+
+
+def ce_times(rng, ce, N, V, sweep=False):
+    """The CE forward and backward kernels at [N, V] bf16 (~15% ignored
+    rows): ms, bound (one read of the logits, and one write of dx for the
+    backward), plain ms and ``cross_entropy`` and its backward as the
+    yardstick (each captured in a CUDA graph, ``graph_ms``); with
+    ``sweep``, also the forward's launch sweep."""
+    bf = torch.bfloat16
+    out = {}
     logits = torch.randn(N, V, device="cuda", dtype=bf) * 3
     labels = torch.from_numpy(rng.integers(0, V, N).astype(np.int32)).cuda()
     labels[torch.from_numpy(rng.random(N) < 0.15).cuda()] = -1
     labels64 = labels.long()
     g = torch.randn(N, device="cuda")
-    t_ce = time_ms(lambda: ce.softmax_ce_fwd(logits, labels), 20)
+    t_ce = graph_ms(lambda: ce.softmax_ce_fwd(logits, labels))
     t_ce_plain = time_ms(lambda: ce.softmax_ce_plain(logits, labels), 5)
-    t_ce_lib = time_ms(lambda: F.cross_entropy(
-        logits, labels64, reduction="none", ignore_index=-1), 20)
+    t_ce_lib = graph_ms(lambda: F.cross_entropy(
+        logits, labels64, reduction="none", ignore_index=-1))
     out["softmax_ce_fwd"] = dict(
         ms=t_ce, plain_ms=t_ce_plain, library_ms=t_ce_lib,
         # max, subtract, exp, add per element (f32 vector)
         bound=bound(logits.numel() * 2 + N * 4 + 2 * N * 4, 4 * N * V,
                     torch.float32))
-    ce_sweep(ce, logits, labels, out["softmax_ce_fwd"]["bound"][0], t_ce)
+    if sweep:
+        ce_sweep(ce, logits, labels, out["softmax_ce_fwd"]["bound"][0], t_ce)
     _, lse = ce.softmax_ce_fwd(logits, labels)
-    t_ceb = time_ms(lambda: ce.softmax_ce_bwd(logits, labels, lse, g), 20)
+    t_ceb = graph_ms(lambda: ce.softmax_ce_bwd(logits, labels, lse, g))
     t_ceb_plain = time_ms(lambda: ce.softmax_ce_bwd_plain(
         logits, labels, lse, g), 5)
-    xg = logits.detach().requires_grad_()
-    l_lib = F.cross_entropy(xg, labels64, reduction="none", ignore_index=-1)
-    t_ceb_lib = time_ms(lambda: torch.autograd.grad(
-        l_lib, xg, g, retain_graph=True), 20)
+    t_ceb_lib = backward_ms(lambda x: F.cross_entropy(
+        x, labels64, reduction="none", ignore_index=-1), (logits,), g)
     out["softmax_ce_bwd"] = dict(
         ms=t_ceb, plain_ms=t_ceb_plain, library_ms=t_ceb_lib,
         # subtract, exp, subtract, multiply per element (f32 vector)
         bound=bound(2 * logits.numel() * 2 + 3 * N * 4, 4 * N * V,
                     torch.float32))
-    del logits, xg, l_lib
-    shapes = {"flash_attention_fwd": "[64,12,512,64] bf16 keep 0.9",
-              "flash_attention_bwd_dq": "[64,12,512,64] bf16 keep 0.9",
-              "flash_attention_bwd_dkv": "[64,12,512,64] bf16 keep 0.9",
-              "softmax_ce_fwd": f"[{N},{V}] bf16",
-              "softmax_ce_bwd": f"[{N},{V}] bf16"}
-    library = {"flash_attention_fwd": "scaled_dot_product_attention",
-               "flash_attention_bwd_dq": "scaled_dot_product_attention "
-                                         "backward (dq, dk, dv; no dropout)",
-               "flash_attention_bwd_dkv": "scaled_dot_product_attention "
-                                          "backward (dq, dk, dv; no dropout)",
-               "softmax_ce_fwd": "cross_entropy",
-               "softmax_ce_bwd": "cross_entropy backward"}
-    for name, r in out.items():
-        log(f"kernel {name} {shapes[name]}: {r['ms']:.4f} ms, bound "
-            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), plain "
-            f"{r['plain_ms']:.4f} ms, {library[name]} {r['library_ms']:.4f} "
-            "ms")
+    del logits
+    for name, lib in (("softmax_ce_fwd", "cross_entropy"),
+                      ("softmax_ce_bwd", "cross_entropy backward")):
+        r = out[name]
+        log(f"kernel {name} [{N},{V}] bf16: {r['ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), "
+            f"{r['bound'][0] / r['ms']:.1%} of it, plain "
+            f"{r['plain_ms']:.4f} ms, {lib} {r['library_ms']:.4f} ms")
     return out
 
 
@@ -1719,52 +1911,64 @@ def ce_sweep(ce, logits, labels, bound_ms, t_fixed):
         f"{bound_ms:.4f} ms")
 
 
-def wgmma_times(fa):
-    """The wgmma forward, dQ and dK/dV kernels at bench_llama's mesh-less
-    shape, causal [8,12,1024,64] bf16: ms, bound (the causal (row, key)
-    pairs' products, or the bytes), plain ms and
-    scaled_dot_product_attention (causal) and its backward as the
-    yardstick."""
-    c = LLAMA
-    B, H, S, D = c["B"], c["heads"], c["S"], c["H"] // c["heads"]
+def causal_flash_times(rng, fa, B, H, S, D, keep, route):
+    """The flash forward, dQ and dK/dV kernels at a causal [B,H,S,D] bf16
+    shape and dropout keep, each on ``route``: ms, bound (the causal (row,
+    key) pairs' products, or the bytes; dropout adds neither), plain ms
+    (at the same keep) and scaled_dot_product_attention (causal, no
+    dropout) and its backward as the yardstick (each captured in a CUDA
+    graph, ``graph_ms``).  Returns {"flash_fwd_<route>",
+    "flash_bwd_dq_<route>", "flash_bwd_dkv_<route>": {...}}."""
     bf = torch.bfloat16
+    routes = [fa.flash_route(kern, bf, D, S, S) for kern in ("fwd", "dq",
+                                                               "dkv")]
+    require(f"timed flash kernels at [{B},{H},{S},{D}] bf16 take the {route} "
+            f"route ({routes})", routes == [route] * 3)
     q, k, v, do = (torch.randn(B, H, S, D, device="cuda", dtype=bf)
                    for _ in range(4))
+    kw = dict(causal=True, dropout_keep=keep,
+              seed=seed_tensor(rng) if keep < 1.0 else None)
     n, pairs = q.numel(), B * H * S * (S + 1) // 2
-    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
     t_bwd_plain = time_ms(lambda: fa.flash_attention_bwd_plain(
-        q, k, v, o, lse, do, causal=True), 3)
+        q, k, v, o, lse, do, **kw), 3)
     dsum = (do.float() * o.float()).sum(-1)
-    t_lib = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), 20)
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    o_lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-    t_bwd_lib = time_ms(lambda: torch.autograd.grad(
-        o_lib, (qg, kg, vg), do, retain_graph=True), 20)
+    t_lib = graph_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    t_bwd_lib = backward_ms(lambda *x: F.scaled_dot_product_attention(
+        *x, is_causal=True), (q, k, v), do)
+    yardstick_floor(f"sdpa causal [{B},{H},{S},{D}]", t_lib, 4 * pairs * D)
+    yardstick_floor(f"sdpa causal backward [{B},{H},{S},{D}]", t_bwd_lib,
+                    10 * pairs * D)
     out = {
-        "flash_fwd_wgmma": dict(
-            ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True),
-                       20),
-            plain_ms=time_ms(lambda: fa.flash_attention_plain(
-                q, k, v, causal=True), 3),
+        f"flash_fwd_{route}": dict(
+            ms=graph_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw)),
+            plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                             3),
             library_ms=t_lib,
             bound=bound(4 * n * 2 + B * H * S * 4, 4 * pairs * D, bf)),
-        "flash_bwd_dq_wgmma": dict(
-            ms=time_ms(lambda: fa.flash_attention_bwd_dq(
-                q, k, v, do, lse, dsum, causal=True), 20),
+        f"flash_bwd_dq_{route}": dict(
+            ms=graph_ms(lambda: fa.flash_attention_bwd_dq(
+                q, k, v, do, lse, dsum, **kw)),
             plain_ms=t_bwd_plain, library_ms=t_bwd_lib,
             bound=bound(5 * n * 2 + 2 * B * H * S * 4, 6 * pairs * D, bf)),
-        "flash_bwd_dkv_wgmma": dict(
-            ms=time_ms(lambda: fa.flash_attention_bwd_dkv(
-                q, k, v, do, lse, dsum, causal=True), 20),
+        f"flash_bwd_dkv_{route}": dict(
+            ms=graph_ms(lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, do, lse, dsum, **kw)),
             plain_ms=t_bwd_plain, library_ms=t_bwd_lib,
             bound=bound(6 * n * 2 + 2 * B * H * S * 4, 8 * pairs * D, bf))}
     for name, r in out.items():
-        log(f"kernel {name} [{B},{H},{S},{D}] bf16 causal: {r['ms']:.4f} "
-            f"ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), plain "
+        log(f"kernel {name} [{B},{H},{S},{D}] bf16 causal keep {keep}: "
+            f"{r['ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]}), {r['bound'][0] / r['ms']:.1%} of it, plain "
             f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention"
-            f"{'' if 'fwd' in name else ' backward'} (causal) "
-            f"{r['library_ms']:.4f} ms")
+            f"{'' if 'fwd' in name else ' backward'} (causal, no dropout) "
+            f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x)")
+    fwd, dq, dkv = (r["ms"] for r in out.values())
+    log(f"kernel flash {route} [{B},{H},{S},{D}] causal keep {keep}: dQ + "
+        f"dK/dV {dq + dkv:.4f} ms against scaled_dot_product_attention's "
+        f"backward {t_bwd_lib:.4f} ms ({(dq + dkv) / t_bwd_lib:.2f}x); "
+        f"forward {fwd / t_lib:.2f}x")
     return out
 
 
@@ -2443,14 +2647,14 @@ def build_llama(ht, models, c):
     return models.LlamaForCausalLM(cfg).loss(ids, labels), ids, labels
 
 
-def llama_executor(ht, models, rng, c, seed, mesh):
+def lm_executor(ht, build, rng, c, seed, mesh=None):
     """``Executor({"train": [loss, AdamW(1e-4, wd 0.01).minimize(loss)]},
-    mesh=mesh, compute_dtype=bfloat16)`` on the card, a feed of
-    Zipf-distributed ids (``zipf_tokens``; the ids rolled by one as
-    labels) and a step returning the loss: (ex, step, init seconds,
-    feed)."""
+    mesh=mesh, compute_dtype=bfloat16)`` on the card over the causal LM
+    that ``build()`` makes, (loss, ids, labels), a feed of Zipf-distributed
+    ids (``zipf_tokens``; the ids rolled by one as labels) and a step
+    returning the loss: (ex, step, init seconds, feed)."""
     with ht.name_scope():
-        loss, ids, labels = build_llama(ht, models, c)
+        loss, ids, labels = build()
         train_op = ht.AdamWOptimizer(learning_rate=1e-4,
                                      weight_decay=0.01).minimize(loss)
     t0 = time.perf_counter()
@@ -2501,8 +2705,9 @@ def llama_paths(ht, models, ht_parallel, fns, rng, steps, seed, captures):
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         # the same seed gives both executors the same params and batch
-        ex, step, init_s, feed = llama_executor(
-            ht, models, np.random.default_rng(seed + 9), c, seed, m)
+        ex, step, init_s, feed = lm_executor(
+            ht, lambda: build_llama(ht, models, c),
+            np.random.default_rng(seed + 9), c, seed, m)
         log(f"{label}: Llama V={c['V']} H={c['H']} L={L} heads "
             f"{c['heads']}/{c['kv']} FFN {c['F']} B={c['B']} S={c['S']}, "
             f"bf16 over f32 masters, AdamW(1e-4, wd 0.01), mesh "
@@ -2558,7 +2763,8 @@ def llama_paths(ht, models, ht_parallel, fns, rng, steps, seed, captures):
 
     w = MISTRAL
     mesh = ht_parallel.make_mesh({"cp": w["cp"]}, devices=[cuda] * w["cp"])
-    ex, step, init_s, feed = llama_executor(ht, models, rng, w, seed, mesh)
+    ex, step, init_s, feed = lm_executor(
+        ht, lambda: build_llama(ht, models, w), rng, w, seed, mesh)
     log(f"mistral-width witness: H={w['H']} heads {w['heads']}/{w['kv']} "
         f"(d={w['H'] // w['heads']}) FFN {w['F']} V={w['V']}, {w['L']} of "
         f"32 layers, B={w['B']} S={w['S']} cp={w['cp']} (local "
@@ -2614,8 +2820,8 @@ def block_times(rng, fa):
     for the full block, causal for the diagonal, and its backward.  Then
     the main path's ring-step launch, [8,12,1024,64] over 4 ranks, and its
     bound, averaged over the 4 steps.  The empty blocks and the ring steps
-    are timed by their kernels' device time (``device_ms``), the rest by
-    CUDA events.  Returns {case: {kernel: times}}."""
+    are timed by their kernels' device time (``device_ms``), the rest in
+    CUDA graphs (``graph_ms``).  Returns {case: {kernel: times}}."""
     B, H, S, D = 1, 32, 2048, 128
     bf = torch.bfloat16
     q, k, v, do = (torch.randn(B, H, S, D, device="cuda", dtype=bf)
@@ -2648,14 +2854,15 @@ def block_times(rng, fa):
         lib = {}
         if case != "empty":
             causal = case == "diagonal"
-            lib["fwd"] = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal), 20)
-            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-            o_lib = F.scaled_dot_product_attention(qg, kg, vg,
-                                                   is_causal=causal)
-            lib["bwd"] = time_ms(lambda: torch.autograd.grad(
-                o_lib, (qg, kg, vg), do, retain_graph=True), 20)
-            del qg, kg, vg, o_lib
+            lib["fwd"] = graph_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal))
+            lib["bwd"] = backward_ms(
+                lambda *x: F.scaled_dot_product_attention(
+                    *x, is_causal=causal), (q, k, v), do)
+            live = B * H * pairs[case] * D
+            yardstick_floor(f"sdpa {case} block", lib["fwd"], 4 * live)
+            yardstick_floor(f"sdpa backward {case} block", lib["bwd"],
+                            10 * live)
         blocks = [(S, S, pairs[case])]
         bounds = {name: block_bound(name, B, H, D, blocks, bf)
                   for name in calls}
@@ -2663,7 +2870,7 @@ def block_times(rng, fa):
         for name, (kern, plain) in calls.items():
             # an empty block's launch takes the card less time than the
             # host needs to make it: its kernels' device time
-            ms = device_ms(kern, 50) if case == "empty" else time_ms(kern, 20)
+            ms = device_ms(kern, 50) if case == "empty" else graph_ms(kern)
             r = dict(ms=ms, plain_ms=time_ms(plain, 3),
                      bound=bounds[name],
                      library_ms=lib.get("fwd" if name.endswith("fwd")
@@ -2719,25 +2926,25 @@ def block_times(rng, fa):
     return out
 
 
-def cross_device_llama(ht, models, ht_parallel, fns, rng, seed):
-    """One f32 training step of a small Llama (2 layers, hidden 256, 4
-    heads, 2 KV heads, V=32000, B=2, S=1024) under cp=4 from the same
-    params on the card (the blockwise kernels, the CE kernels) and on the
-    CPU (their plain versions): loss, gradients and each param's change."""
-    c = dict(V=32000, H=256, L=2, heads=4, kv=2, F=512, B=2, S=1024)
+def cross_device_lm(ht, label, build, c, fns, rng, seed, expect, why,
+                    meshes=(None, None)):
+    """One f32 training step of a small causal LM, ``build()`` = (loss, ids,
+    labels) at vocab ``c["V"]`` and [``c["B"]``, ``c["S"]``] ids, uniform,
+    from the same params on the card (the kernels) and
+    on the CPU (their plain versions), under ``meshes`` (the card's, the
+    CPU's): the card's launches against ``expect`` ((counts, what they
+    are)), then the loss, every gradient and each param's change against
+    the CPU's.  ``why``: (the loss's tolerance reason, the sums that
+    differ in order)."""
     with ht.name_scope():
-        loss, ids, labels = build_llama(ht, models, c)
+        loss, ids, labels = build()
         xs = ht.graph_variables([loss], trainable_only=True)
         grads = ht.gradients(loss, xs)
         train_op = ht.AdamWOptimizer(learning_rate=1e-4, weight_decay=0.01
                                      ).apply_gradients(list(zip(grads, xs)))
     nodes = {"train": [loss, train_op, *grads]}
-    ex_gpu = ht.Executor(nodes, device="cuda", seed=seed + 10,
-                         mesh=ht_parallel.make_mesh(
-                             {"cp": 4}, devices=[torch.device("cuda", 0)] * 4))
-    ex_cpu = ht.Executor(nodes, device="cpu", seed=seed + 11,
-                         mesh=ht_parallel.make_mesh({"cp": 4},
-                                                    devices=["cpu"] * 4))
+    ex_gpu = ht.Executor(nodes, device="cuda", seed=seed, mesh=meshes[0])
+    ex_cpu = ht.Executor(nodes, device="cpu", seed=seed + 1, mesh=meshes[1])
     ex_cpu.load_state_dict(ex_gpu.state_dict())
     # copies: a step writes the params in place
     init = {k: v.clone() for k, v in ex_cpu.params.items()}
@@ -2749,28 +2956,43 @@ def cross_device_llama(ht, models, ht_parallel, fns, rng, seed):
     launches = {name: fn.launches - before[name] for name, fn in fns.items()}
     out_cpu = ex_cpu.run("train", feed_dict=feed)
     torch.cuda.synchronize()
-    require(f"cross-device Llama: the card's step launched the block "
-            f"kernels 8/8/8, f32 on the plain-FMA route ({launches})",
-            launches == expect_launches(
-                **flash_launches(8, block=True, route="simt"),
-                softmax_ce_fwd=1, softmax_ce_bwd=1))
-    check("cross-device f32 Llama cp=4 train loss (card kernels vs CPU "
-          "plain)", out_gpu[0].cpu(), out_cpu[0], 1e-5,
-          "f32 on both sides; a loss of ~10.4 whose 32000-way logsumexp "
-          "and mean over 2048 tokens sum in another order (1e-6 relative)")
+    require(f"cross-device {label}: the card's step launched {expect[1]} "
+            f"({launches})", launches == expect[0])
+    check(f"cross-device f32 {label} train loss (card kernels vs CPU "
+          "plain)", out_gpu[0].cpu(), out_cpu[0], 1e-5, why[0])
     scale = max(g.abs().max().item() for g in out_cpu[2:])
     bad = [v.name for v, g_gpu, g_cpu in zip(xs, out_gpu[2:], out_cpu[2:])
            if not ((g_gpu.cpu() - g_cpu).abs() - 1e-3 * g_cpu.abs()).max()
            .item() <= 1e-5 * scale]
     worst = max((g_gpu.cpu() - g_cpu).abs().max().item()
                 for g_gpu, g_cpu in zip(out_gpu[2:], out_cpu[2:]))
-    require(f"cross-device f32 Llama gradients of {len(xs)} params: "
+    require(f"cross-device f32 {label} gradients of {len(xs)} params: "
             f"max_abs_err={worst:.3e} tol=1e-5*{scale:.3e} + 1e-3*|g| (f32 "
-            "on both sides; the ring, the GEMMs and the CE sum in another "
-            f"order) {'bad: ' + str(bad) if bad else ''}", not bad)
-    adamw_change_checks("cross-device Llama", xs, init, ex_gpu, ex_cpu,
+            f"on both sides; {why[1]} sum in another order) "
+            f"{'bad: ' + str(bad) if bad else ''}", not bad)
+    adamw_change_checks(f"cross-device {label}", xs, init, ex_gpu, ex_cpu,
                         out_gpu[2:], out_cpu[2:], lr=1e-4, eps=1e-7)
     ex_gpu.close()
+
+
+def cross_device_llama(ht, models, ht_parallel, fns, rng, seed):
+    """One f32 training step of a small Llama (2 layers, hidden 256, 4
+    heads, 2 KV heads, V=32000, B=2, S=1024) under cp=4 from the same
+    params on the card (the blockwise kernels, the CE kernels) and on the
+    CPU (their plain versions): loss, gradients and each param's change."""
+    c = dict(V=32000, H=256, L=2, heads=4, kv=2, F=512, B=2, S=1024)
+    cross_device_lm(
+        ht, "Llama cp=4", lambda: build_llama(ht, models, c), c, fns, rng,
+        seed + 10, (expect_launches(
+            **flash_launches(8, block=True, route="simt"),
+            softmax_ce_fwd=1, softmax_ce_bwd=1),
+            "the block kernels 8/8/8, f32 on the plain-FMA route"),
+        ("f32 on both sides; a loss of ~10.4 whose 32000-way logsumexp "
+         "and mean over 2048 tokens sum in another order (1e-6 relative)",
+         "the ring, the GEMMs and the CE"),
+        meshes=(ht_parallel.make_mesh({"cp": 4}, devices=[
+            torch.device("cuda", 0)] * 4),
+            ht_parallel.make_mesh({"cp": 4}, devices=["cpu"] * 4)))
 
 
 # -- phase 3g: ResNet-18 --------------------------------------------------
@@ -3401,6 +3623,100 @@ def cross_device_serving(ht, models, seed):
     free_memory("after the cross-device serving check")
 
 
+# -- phase 3i: GPT training ------------------------------------------------
+
+# bench_gpt_e2e (bench.py:303-345): GPT-small (GPT_CONFIGS["gpt-small"]:
+# hidden 768, 12 layers, 12 heads of 64), V=50257, B=8 S=1024; nothing cut
+GPT_SMALL = dict(preset="gpt-small", L=12, B=8, S=1024, V=50257,
+                 route="wgmma")
+# GPT-3 2.7B's published widths (GPT_CONFIGS["gpt-2.7b"]; Brown et al. 2020,
+# Table 2.1: d_model 2560, 32 heads of 80, context 2048) at bench_gpt_layer's
+# B=2 S=2048 (bench.py:198); 8 of its 32 layers: the whole model's f32
+# masters, gradients, Adam moments, update temporaries and bf16 copy take
+# ~34 bytes a param, ~90 GB for 2.65 B params, more than the card holds
+GPT_27B = dict(preset="gpt-2.7b", L=8, B=2, S=2048, V=50257, route="mma")
+
+
+def build_gpt(ht, models, c, dropout):
+    """bench_gpt_e2e's loss graph, ``GPTLMHeadModel(...).loss(ids,
+    labels)``, at the widths of the preset ``c["preset"]`` (or ``c["H"]``
+    and ``c["heads"]``), ``c["L"]`` layers, vocab ``c["V"]``, context
+    ``c["S"]``: (loss, ids, labels)."""
+    widths = (models.GPT_CONFIGS[c["preset"]] if "preset" in c else
+              dict(hidden_size=c["H"], num_heads=c["heads"]))
+    cfg = models.GPTConfig(vocab_size=c["V"], hidden_size=widths[
+        "hidden_size"], num_layers=c["L"], num_heads=widths["num_heads"],
+        seq_len=c["S"], dropout_prob=dropout)
+    ids = ht.placeholder_op("gpt_ids", (c["B"], c["S"]), dtype=np.int32)
+    labels = ht.placeholder_op("gpt_labels", (c["B"], c["S"]),
+                               dtype=np.int32)
+    return models.GPTLMHeadModel(cfg).loss(ids, labels), ids, labels
+
+
+def gpt_paths(ht, models, fns, rng, steps, seed, captures):
+    """Phase 3i: GPT causal-LM training through ``Executor({"train": [loss,
+    AdamW(1e-4, wd 0.01).minimize(loss)]}, compute_dtype=bfloat16)`` over
+    f32 masters, dropout 0.1 (hidden and attention, in the flash kernels),
+    Zipf ids with the ids rolled by one as labels: GPT-small at
+    bench_gpt_e2e's full size (the wgmma flash kernels) and GPT-3 2.7B's
+    widths, depth cut (d = 80: the mma.sync flash kernels); each with
+    phase 3f's captured-against-eager checks (appended to ``captures``).
+    Returns {label: (ms/step, launches)}."""
+    out = {}
+    for label, c, n, warmup, phase_f in (
+            ("gpt-small path", GPT_SMALL, steps, 3, {}),
+            ("gpt-2.7b-width path", GPT_27B, 3, 2, dict(n=3, rs=5, turn=2))):
+        ex, step, init_s, feed = lm_executor(
+            ht, lambda: build_gpt(ht, models, c, dropout=0.1), rng, c, seed)
+        w = models.GPT_CONFIGS[c["preset"]]
+        h, heads = w["hidden_size"], w["num_heads"]
+        log(f"{label}: GPT {c['preset']} widths (hidden {h}, {heads} heads "
+            f"of {h // heads}, FFN {4 * h}), {c['L']} of {w['num_layers']} "
+            "layers, "
+            f"V={c['V']} B={c['B']} S={c['S']}, dropout 0.1, AdamW(1e-4, wd "
+            f"0.01) over f32 masters, bf16 compute, "
+            f"{sum(p.numel() for p in ex.params.values())} params, init "
+            f"{init_s:.1f} s")
+        _, ms, launches = run_path(
+            label, step, fns, n, c["B"], expect_launches(
+                **flash_launches(c["L"] * n, route=c["route"]),
+                softmax_ce_fwd=n, softmax_ce_bwd=n), warmup=warmup)
+        log(f"{label}: {c['B'] * c['S'] * 1000 / ms:.1f} tokens/s, "
+            f"{c['B'] * 1000 / ms:.3f} samples/s, {ms:.3f} ms/step")
+        profile_steps(label, step, steps=1)
+        captures.append(capture_phase(ht, label, ex, "train", feed, fns,
+                                      **phase_f))
+        e, cap = captures[-1]["eager"], captures[-1]["captured"]
+        log(f"{label}: peak memory {e['peak_gib']:.2f} GiB eager, "
+            f"{cap['peak_gib']:.2f} GiB captured with its graph pool")
+        out[label] = (ms, launches)
+        ex.close()
+        del ex, step, feed
+        free_memory(f"after the {label}")
+    return out
+
+
+def cross_device_gpt(ht, models, fns, rng, seed):
+    """One f32 training step of a small GPT (2 layers, hidden 256, 4 heads
+    of 64, V=1024, B=2, S=256, dropout off) from the same params on the
+    card (the flash kernels, f32 on the plain-FMA route, and the CE
+    kernels, both admitted by their gates at these shapes) and on the CPU
+    (the plain composition and plain versions): loss, every gradient (the
+    tied table's from the lookup and the head together) and each param's
+    change in one AdamW step."""
+    c = dict(H=256, heads=4, L=2, B=2, S=256, V=1024)
+    cross_device_lm(
+        ht, "GPT", lambda: build_gpt(ht, models, c, dropout=0.0), c, fns,
+        rng,
+        seed + 12, (expect_launches(
+            **flash_launches(2, route="simt"), softmax_ce_fwd=1,
+            softmax_ce_bwd=1), "the flash kernels 2/2/2 (f32: the "
+            "plain-FMA route) and the CE kernels 1/1"),
+        ("f32 on both sides; a loss of ~7 whose 1024-way logsumexp and "
+         "mean over 512 tokens sum in another order (1e-6 relative)",
+         "the flash kernels, the GEMMs, the lookup's sums and the CE"))
+
+
 def adamw_change_checks(label, xs, init, ex_gpu, ex_cpu, g_gpu, g_cpu, lr,
                         eps):
     """Each param's change in a first AdamW step, card against CPU.  The
@@ -3493,8 +3809,8 @@ def main():
     rng = np.random.default_rng(args.seed)
     torch.manual_seed(args.seed)
     dropout_checks(rng, fa)
-    wgmma_dropout_checks(rng, fa)
-    wgmma_repeat_checks(rng, fa)
+    kernel_dropout_checks(rng, fa)
+    flash_repeat_checks(rng, fa)
     fwd_err = flash_fwd_checks(rng, fa)
     bwd_err = flash_bwd_checks(rng, fa)
     block_err = block_checks(rng, fa)
@@ -3592,6 +3908,10 @@ def main():
     if failures:
         log(f"FAILED: {failures}")
         return 1
+    gpt = gpt_paths(ht, models, fns, rng, steps, args.seed, captures)
+    if failures:
+        log(f"FAILED: {failures}")
+        return 1
 
     times = kernel_times(rng, fa, ce, B, S)
     torch.cuda.empty_cache()
@@ -3602,10 +3922,18 @@ def main():
     cross_device_moe(ht, layers, md, rng, args.seed)
     blocks = block_times(rng, fa)
     times.update(blocks["full"])
-    times.update(wgmma_times(fa))
+    c = LLAMA
+    times.update(causal_flash_times(rng, fa, c["B"], c["heads"], c["S"],
+                                    c["H"] // c["heads"], 1.0, "wgmma"))
+    # GPT's attention: GPT-small's heads with dropout on the wgmma kernels,
+    # GPT-3 2.7B's d = 80 on the mma.sync kernels; GPT's LM-head CE
+    gpt_times = [causal_flash_times(rng, fa, b, h, s, d, keep, route)
+                 for (b, h, s, d), keep, route in GPT_FLASH]
+    ce_times(rng, ce, GPT_SMALL["B"] * GPT_SMALL["S"], GPT_SMALL["V"])
     cross_device_llama(ht, models, htp, fns, rng, args.seed)
     cross_device_resnet(ht, models, rng, args.seed)
     cross_device_serving(ht, models, args.seed)
+    cross_device_gpt(ht, models, fns, rng, args.seed)
     if failures:
         log(f"FAILED: {failures}")
         return 1
@@ -3648,18 +3976,24 @@ def main():
     # launches: each kernel's own training path (BERT, W&D at 337,000 rows
     # for pack_write, bench_moe for row_gather, the cp=4 Llama for the block
     # kernels, the mesh-less Llama for the wgmma kernels, which the BERT and
-    # cp=4 paths run too); row_gather's times are the sums over one
-    # bench_moe step's three launches; the block kernels' times are the full
-    # block's at the witness's block shape, the wgmma kernels' at the
-    # mesh-less Llama's causal shape
+    # cp=4 paths run too), with path i's GPT-small and GPT-3 2.7B-width
+    # steps added to the flash and CE kernels' and GPT-small's to the wgmma
+    # kernels'; row_gather's times are the sums over one bench_moe step's
+    # three launches; the block kernels' times are the full block's at the
+    # witness's block shape, the wgmma kernels' at the mesh-less Llama's
+    # causal shape
     cp_launches = llama["llama cp=4 path"][1]
     meshless = llama["llama mesh-less path"][1]
-    launches = dict(train_launches, pack_write=ctr[WDL_ROWS][1]["pack_write"],
-                    row_gather=moe_launches["row_gather"],
-                    **{name: cp_launches[name] for name in KERNEL_NAMES
-                       if name.startswith("flash_attention_block")},
-                    **{name: meshless[name] for name in
-                       ("flash_fwd_wgmma", "flash_bwd_dq_wgmma",
+    gpt_launches = [v[1] for v in gpt.values()]
+    launches = dict(
+        {name: train_launches[name] + sum(g[name] for g in gpt_launches)
+         for name in KERNEL_NAMES[:3] + ("softmax_ce_fwd", "softmax_ce_bwd")},
+        pack_write=ctr[WDL_ROWS][1]["pack_write"],
+        row_gather=moe_launches["row_gather"],
+        **{name: cp_launches[name] for name in KERNEL_NAMES
+           if name.startswith("flash_attention_block")},
+        **{name: meshless[name] + sum(g[name] for g in gpt_launches)
+           for name in ("flash_fwd_wgmma", "flash_bwd_dq_wgmma",
                         "flash_bwd_dkv_wgmma")})
     times["pack_write"] = pw_times[WDL_ROWS]
     kernels = [{"name": name, "route": route, "source": source,
@@ -3678,7 +4012,30 @@ def main():
                     for label, v in llama.items())
         + f"; resnet18 path: {resnet_ms:.3f} ms/step; serving path: "
         f"{serving['tokens_per_sec']:.1f} tokens/s, decode "
-        f"{serving['decode_ms']['captured']:.3f} ms/step")
+        f"{serving['decode_ms']['captured']:.3f} ms/step; "
+        + "; ".join(f"{label}: {v[0]:.3f} ms/step"
+                    for label, v in gpt.items()))
+    # path i's flash kernels at its own shapes and routes, beside the
+    # kernels line, whose flash_attention_* entries sum launches over both
+    # routes and carry BERT's wgmma times: launches are those of the path
+    # that runs the shape (i1 the wgmma kernels, i2 the mma.sync ones) at
+    # its attention dropout, keep 0.9; none at keep 1
+    gpt_paths_by_route = {GPT_SMALL["route"]: "gpt-small path",
+                          GPT_27B["route"]: "gpt-2.7b-width path"}
+    gpt_flash = [
+        {"name": name, "route": "cuda", "shape": list(shape),
+         "causal": True, "keep": keep,
+         "path": gpt_paths_by_route[route] if keep < 1.0 else None,
+         "launches": (gpt[gpt_paths_by_route[route]][1][name]
+                      if keep < 1.0 else 0),
+         "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+         "library_ms": r["library_ms"]}
+        for (shape, keep, route), t in zip(GPT_FLASH, gpt_times)
+        for name, r in t.items()]
+    log(f"run: {time.perf_counter() - T0:.1f} s from the start to the "
+        "result")
+    log(json.dumps({"gpt_flash": gpt_flash}))
     log(json.dumps({"capture": captures}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -11,8 +11,9 @@ body eagerly.  Each Pallas TPU kernel on a ported path is a
 hand-written Hopper kernel here (``ops/kernels/``, ``csrc/``).  The port
 imports nothing of JAX or of ``hetu_tpu``.
 
-Slices A1, A2, B1, E and F1 (this package so far): BERT evaluation, the
-single-device BERT training step (autodiff, AdamW, dropout),
+Slices A1, A2, B1, C1, E and F1 (this package so far): BERT evaluation,
+the single-device BERT training step (autodiff, AdamW, dropout), GPT
+causal-LM training (models/gpt.py: learned positions, a tied head),
 Wide&Deep/CTR training on a packed embedding table (models/ctr.py), the
 single-device MoE FFN training step (layers/moe.py), and Llama training
 under context parallelism (models/llama.py, parallel/: ring and Ulysses

@@ -25,7 +25,7 @@ prompt length and the current position has been overwritten by a decode
 step before it first becomes attendable.
 
 The paged engine's ``prefill_chunk`` and the speculative self-draft's
-``n_layers`` arrive with slice D2, the GPT adapter with slice C
+``n_layers`` arrive with slice D2, the GPT adapter with GPT decode (slice C)
 (ROADMAP.md).
 """
 
@@ -108,18 +108,20 @@ class LlamaSlotAdapter:
 
 
 class GPTSlotAdapter:
-    """The learned-positions GPT adapter arrives with the GPT model,
-    slice C of the port (ROADMAP.md)."""
+    """The learned-positions GPT adapter arrives with GPT decode, the next
+    part of slice C of the port (ROADMAP.md); the model trains today
+    (models/gpt.py)."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            "GPTSlotAdapter (GPT decode) arrives with slice C of the port "
-            "(models/gpt.py; ROADMAP.md)")
+            "GPTSlotAdapter arrives with GPT decode, the next PR of slice C "
+            "of the port (models/gpt_decode.py; ROADMAP.md)")
 
 
 def adapter_for(model, name):
     """Pick the slot adapter matching a model instance by its config
-    family (rotary Llama-likes; learned-position GPTs raise, slice C)."""
+    family (rotary Llama-likes; learned-position GPTs raise until GPT
+    decode, slice C)."""
     c = model.config
     if hasattr(c, "rope_theta"):
         return LlamaSlotAdapter.for_model(model, name)

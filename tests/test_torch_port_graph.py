@@ -235,7 +235,8 @@ def test_importing_the_port_loads_no_jax():
             "hetu_tpu_torch.layers.moe, "
             "hetu_tpu_torch.ops.kernels.moe_dispatch, "
             "hetu_tpu_torch.serving, hetu_tpu_torch.metrics, "
-            "hetu_tpu_torch.models.llama_decode; "
+            "hetu_tpu_torch.models.llama_decode, "
+            "hetu_tpu_torch.models.gpt; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'hetu_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
