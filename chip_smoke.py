@@ -11,22 +11,27 @@ Phases, each fatal on failure (exit 1, no result lines):
    path; dQ and dK/dV backward, also blockwise; the packed-gradient write;
    the MoE row gather), all started together, then Triton's compiler for
    the softmax-CE forward and backward.  The ptxas report names each
-   kernel's registers and spill stores (the three wgmma kernels, and any
-   that spills).
+   kernel's registers and spill stores (the wgmma kernels, and any that
+   spills); the d = 80 wgmma forward must spill nothing.
 2. Kernels against their plain PyTorch versions on the card, on the same
    inputs: the dropout keep bits bitwise, of the helper and inside the
-   wgmma forward, dQ and dK/dV kernels (d = 64 and 128) and the mma.sync
-   ones at GPT-3 2.7B's d = 80; two launches of each wgmma and mma.sync
-   kernel give the same bits (at BERT's, Llama's, ragged, the d = 128
-   block and GPT's shapes, and the empty, diagonal and full blocks' dK/dV,
-   the full one also against its plain version); the flash forward (with
-   and without dropout), dQ, dK/dV
+   wgmma forward, dQ and dK/dV kernels (d = 64 and 128), and at GPT-3
+   2.7B's d = 80 inside the wgmma forward and the mma.sync dQ and dK/dV;
+   two launches of each wgmma and mma.sync kernel give the same bits (at
+   BERT's, Llama's, ragged, the d = 128 block and GPT's shapes, d = 80
+   ragged, causal and under the key mask, the empty, diagonal and full
+   blocks' dK/dV, the full one also against its plain version, and the
+   d = 80 blockwise forward at every step of a 4-rank ring of
+   [1,32,2048,80] blocks, also against its plain version); the flash
+   forward (with and without dropout), dQ, dK/dV
    and the CE forward and backward at the main paths' shapes (the wgmma
-   route for bf16 heads of 64 and 128) and at ragged, causal,
-   fully-masked, d = 96 (the mma.sync route), wide-head and f32 ones;
+   route for bf16 heads of 64 and 128, and 80 for the forward) and at
+   ragged, causal, fully-masked, d = 80 (ragged causal, key mask),
+   d = 96 (the mma.sync route), wide-head and f32 ones;
    at GPT's causal shapes, GPT-small's [8,12,1024,64] at keep 0.9 (wgmma)
-   and GPT-3 2.7B's [2,32,2048,80] at keep 0.9 and 1 (mma.sync), each on
-   its route, dQ, dK and dV within the spread of their bf16 terms; the
+   and GPT-3 2.7B's [2,32,2048,80] at keep 0.9 and 1 (the forward on
+   wgmma, dQ and dK/dV on mma.sync), each on its route, dQ, dK and dV
+   within the spread of their bf16 terms; the
    CE at GPT's V = 50257, [8192,50257] and
    [4096,50257] bf16, with out-of-range labels (loss = lse there);
    ``pack_write`` at the W&D shapes (uniform, Zipf-skewed at M = 3328 and
@@ -42,7 +47,7 @@ Phases, each fatal on failure (exit 1, no result lines):
    blockwise (ring) forward, dQ and dK/dV at the full, diagonal, empty,
    partial and misaligned offsets, with a K/V block twice q's length, and
    every step of a 4-rank ring at the cp path's shape and of one with
-   64-row groups (the mma.sync route), f32 and bf16, d 64 and 128 (empty
+   64-row groups (the mma.sync route), f32 and bf16, d 64, 80 and 128 (empty
    rows lse = -1e30 and o = 0, unseen K/V rows dk = dv = 0, bitwise); and ``ring_attention`` over a 4-position mesh against the
    single-device flash kernel on the global sequence, output and three
    gradients.  Each check prints its max |error| beside its stated
@@ -168,9 +173,9 @@ Phases, each fatal on failure (exit 1, no result lines):
       ms/step, peak memory; phase f.  i2: GPT-3 2.7B's published widths
       (hidden 2560, 32 heads of d = 80, FFN 10240, V = 50257) at
       bench_gpt_layer's B=2 S=2048, 8 of its 32 layers: 2 warm-up and 3
-      timed steps, 8/8/8 launches a step on the mma.sync kernels and none
-      on wgmma, 1/1 CE; phase f at the witness's counts (3 steps,
-      ``run_steps(5)``).
+      timed steps, per step 8 forward launches on the wgmma kernel and 8
+      dQ and 8 dK/dV launches on the mma.sync ones, 1/1 CE; phase f at
+      the witness's counts (3 steps, ``run_steps(5)``).
    Each path's step is broken down by kernel class under torch.profiler.
    Then each kernel is timed at the paths' shapes beside its bound, its
    plain version and one PyTorch library call (a yardstick only; the port
@@ -198,14 +203,15 @@ Phases, each fatal on failure (exit 1, no result lines):
    [1,32,2048,128] bf16, for the full, diagonal and empty blocks, beside
    scaled_dot_product_attention (the yardstick) and its backward; the
    wgmma forward, dQ and dK/dV at the mesh-less Llama's causal
-   [8,12,1024,64], and at keep 0.9 (GPT-small's); the mma.sync ones at
-   GPT-3 2.7B's causal [2,32,2048,80] at keep 1 and 0.9, beside the
-   causal scaled_dot_product_attention and its backward; BERT's dQ and
+   [8,12,1024,64], and at keep 0.9 (GPT-small's); at GPT-3 2.7B's causal
+   [2,32,2048,80] the wgmma forward and the mma.sync dQ and dK/dV, at keep
+   1 and 0.9, beside the causal scaled_dot_product_attention and its
+   backward; BERT's dQ and
    dK/dV at keep 1 beside keep 0.9; the CE forward and backward at
    GPT-small's [8192,50257] beside cross_entropy.
 4. Result: the run's seconds, a {"gpt_flash": [...]} line (path i's
-   flash kernels by route at GPT's shapes: launches of the path that runs
-   each, ms, plain ms, bound and sdpa's time), the {"capture": [...]}
+   flash kernels at GPT's shapes, each on its route: launches of the path
+   that runs each, ms, plain ms, bound and sdpa's time), the {"capture": [...]}
    line, a {"kernels": [...]} JSON line (the ten kernels of the TPU
    kernels' entry points and the three wgmma kernels, launches from the
    captured steps of the paths, path i's among them, on both flash
@@ -486,6 +492,12 @@ def build_kernels(build, ce):
             if "wgmma" in name or spill:
                 log(f"  {source}: {name}: {regs} registers, {spill} bytes "
                     "spill stores")
+        if source == "flash_attention_fwd.cu":
+            # the d = 80 forward's 40-register O fits beside its scores
+            d80 = [b for n, _, b in report if "flash_fwd_wgmma<80>" in n
+                   or "flash_fwd_wgmmaILi80E" in n]
+            require("ptxas: flash_fwd_wgmma<80> built with 0 bytes of spill "
+                    f"stores ({d80})", d80 == [0])
     t0 = time.perf_counter()
     probe = torch.zeros(8, 1024, device="cuda", dtype=torch.bfloat16)
     labels = torch.zeros(8, dtype=torch.int32, device="cuda")
@@ -540,21 +552,22 @@ WGMMA_ERR = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
 
 def kernel_dropout_checks(rng, fa):
     """Phase 2a': the keep bits inside the wgmma forward, dQ and dK/dV
-    kernels (d = 64 and 128) and inside the mma.sync ones at GPT-3 2.7B's
-    d = 80, bitwise.  With q = 0 every key of a row has p = 1/S; with V
-    (and K for dQ) holding the identity on keys [p d, (p + 1) d) and zeros
-    elsewhere, o[i, c] = keep(i, p d + c) / (keep S), and with dO = 1 and D
-    = 0, dQ[i, c] = scale keep(i, p d + c) / (keep S): nonzero exactly
-    where the key is kept.  For dK/dV, dO holds the identity on rows [p d,
+    kernels (d = 64 and 128) and, at GPT-3 2.7B's d = 80, inside the
+    wgmma forward and the mma.sync dQ and dK/dV, bitwise.  With q = 0
+    every key of a row has p = 1/S; with V (and K for dQ) holding the
+    identity on keys [p d, (p + 1) d) and zeros elsewhere, o[i, c] =
+    keep(i, p d + c) / (keep S), and with dO = 1 and D = 0, dQ[i, c] =
+    scale keep(i, p d + c) / (keep S): nonzero exactly where the key is
+    kept.  For dK/dV, dO holds the identity on rows [p d,
     (p + 1) d) instead, so dV[key, c] = keep(p d + c, key) / (keep S):
     nonzero exactly where row p d + c keeps the key.  S is a whole number
     of d-key blocks.  Compared with the plain hash's bits over every (row,
     key)."""
     B, H, keep = 2, 3, 0.9
     bf = torch.bfloat16
-    for D, S, route in ((64, 256, "wgmma"), (128, 256, "wgmma"),
-                        (80, 320, "mma")):
-        assert all(fa.flash_route(kern, bf, D, S, S) == route
+    for D, S, routes in ((64, 256, WGMMA), (128, 256, WGMMA),
+                         (80, 320, D80)):
+        assert all(fa.flash_route(kern, bf, D, S, S) == routes[kern]
                    for kern in ("fwd", "dq", "dkv"))
         seed = seed_tensor(rng)
         want = fa.dropout_keep_mask_plain(seed, B * H, S, S, keep).reshape(
@@ -581,41 +594,53 @@ def kernel_dropout_checks(rng, fa):
             got_dq[..., p * D:(p + 1) * D] = dq != 0
             got_dv[..., p * D:(p + 1) * D, :] = (dv != 0).transpose(-1, -2)
         torch.cuda.synchronize()
-        for label, got in (("forward", got_o), ("dQ", got_dq),
-                           ("dK/dV", got_dv)):
+        for kern, label, got in (("fwd", "forward", got_o),
+                                 ("dq", "dQ", got_dq),
+                                 ("dkv", "dK/dV", got_dv)):
             diff = int((got != want).sum())
-            log(f"check {route} {label} d={D} dropout keep bits [{B * H},"
-                f"{S},{S}]: {diff} of {got.numel()} differ")
-            require(f"{route} {label} d={D} keep bits bitwise equal to the "
-                    "plain hash", diff == 0)
+            log(f"check {routes[kern]} {label} d={D} dropout keep bits "
+                f"[{B * H},{S},{S}]: {diff} of {got.numel()} differ")
+            require(f"{routes[kern]} {label} d={D} keep bits bitwise equal "
+                    "to the plain hash", diff == 0)
 
 
+# the route of each flash kernel at a shape (flash_attention.flash_route):
+# all three on wgmma at bf16 d = 64 and 128; at d = 80 the forward on
+# wgmma, dQ and dK/dV on mma.sync; f32 on plain FMA
+WGMMA = dict(fwd="wgmma", dq="wgmma", dkv="wgmma")
+D80 = dict(fwd="wgmma", dq="mma", dkv="mma")
+SIMT = dict(fwd="simt", dq="simt", dkv="simt")
 # GPT's attention (path i): GPT-small's causal heads with dropout on the
 # wgmma kernels; GPT-3 2.7B's d = 80 heads (bench_gpt_layer's [2,32,2048,80],
-# bench.py:198) on the mma.sync kernels, with and without dropout
-GPT_FLASH = (((8, 12, 1024, 64), 0.9, "wgmma"),
-             ((2, 32, 2048, 80), 0.9, "mma"),
-             ((2, 32, 2048, 80), 1.0, "mma"))
+# bench.py:198), with and without dropout, on D80's routes
+GPT_FLASH = (((8, 12, 1024, 64), 0.9, WGMMA),
+             ((2, 32, 2048, 80), 0.9, D80),
+             ((2, 32, 2048, 80), 1.0, D80))
 
 
-def flash_repeat_checks(rng, fa):
+def flash_repeat_checks(rng, fa, rng80):
     """Phase 2a'': two launches of each wgmma and mma.sync kernel on the
     same inputs give the same bits (no atomics, no order that varies): the
-    forward, dQ and dK/dV at BERT's, Llama's, the d = 128 block's, ragged
-    and GPT's (``GPT_FLASH``) shapes, then the blockwise dK/dV at the
-    witness's empty, diagonal and full blocks, the full one also against
-    its plain version."""
+    forward, dQ and dK/dV at BERT's, Llama's, the d = 128 block's, ragged,
+    d = 80 (ragged causal, and the key mask at keep 0.9; inputs from
+    ``rng80``) and GPT's (``GPT_FLASH``) shapes, then the blockwise dK/dV
+    at the witness's empty, diagonal and full blocks, the full one also
+    against its plain version, and the d = 80 blockwise forward
+    (``d80_ring_checks``)."""
     bf = torch.bfloat16
-    for (B, H, S, D), causal, masked, keep in (
-            ((64, 12, 512, 64), False, True, 0.9),
-            ((8, 12, 1024, 64), True, False, 1.0),
-            ((1, 32, 2048, 128), False, False, 1.0),
-            ((2, 3, 200, 64), False, True, 0.9),
-            ((2, 3, 1000, 128), True, False, 1.0),
-            *((shape, True, False, keep) for shape, keep, _ in GPT_FLASH)):
-        q, k, v, do = (randn(rng, (B, H, S, D), bf) for _ in range(4))
-        mask = bert_mask(rng, B, S, "cuda") if masked else None
-        seed = seed_tensor(rng) if keep < 1.0 else None
+    for gen, (B, H, S, D), causal, masked, keep in (
+            (rng, (64, 12, 512, 64), False, True, 0.9),
+            (rng, (8, 12, 1024, 64), True, False, 1.0),
+            (rng, (1, 32, 2048, 128), False, False, 1.0),
+            (rng, (2, 3, 200, 64), False, True, 0.9),
+            (rng, (2, 3, 1000, 128), True, False, 1.0),
+            (rng80, (2, 3, 1000, 80), True, False, 1.0),
+            (rng80, (2, 4, 512, 80), False, True, 0.9),
+            *((rng, shape, True, False, keep)
+              for shape, keep, _ in GPT_FLASH)):
+        q, k, v, do = (randn(gen, (B, H, S, D), bf) for _ in range(4))
+        mask = bert_mask(gen, B, S, "cuda") if masked else None
+        seed = seed_tensor(gen) if keep < 1.0 else None
         kw = dict(mask=mask, causal=causal, dropout_keep=keep, seed=seed)
         runs = []
         for _ in range(2):
@@ -626,7 +651,8 @@ def flash_repeat_checks(rng, fa):
                     q, k, v, do, lse, dsum, **kw)))
         torch.cuda.synchronize()
         same = [torch.equal(a, b) for a, b in zip(*runs)]
-        route = fa.flash_route("fwd", bf, D, S, S)
+        route = "/".join(fa.flash_route(kern, bf, D, S, S)
+                         for kern in ("fwd", "dq", "dkv"))
         require(f"{route} [{B},{H},{S},{D}] causal={causal} keep {keep}: two "
                 f"launches give the same bits (o, lse, dq, dk, dv: {same})",
                 all(same))
@@ -661,15 +687,54 @@ def flash_repeat_checks(rng, fa):
                 WGMMA_ERR["dkv"] = max(WGMMA_ERR["dkv"], err)
             del dk_p, dv_p
         del o, lse, dsum, runs
+    del q, k, v, do, lse_diag
+    d80_ring_checks(rng80, fa)
 
 
-def flash_fwd_checks(rng, fa):
+def d80_ring_checks(rng, fa):
+    """The d = 80 blockwise forward on the wgmma kernel at every step of
+    a 4-rank ring of [1,32,2048,80] blocks (q, K/V [1,32,8192,80]): step 0
+    runs the diagonal blocks, steps 1-3 full ones (rank g >= r) and empty
+    ones (g < r).  Two launches give the same bits; o and lse (live rows)
+    agree with the plain version; rows with no live key get lse = -1e30
+    and o = 0 bitwise."""
+    bf = torch.bfloat16
+    B, H, G, D, n = 1, 32, 2048, 80, 4
+    assert fa.flash_route("fwd", bf, D, n * G, n * G, n) == "wgmma"
+    q, k, v = (randn(rng, (B, H, n * G, D), bf) for _ in range(3))
+    for r in range(n):
+        name = f"wgmma block ring [{B},{H},{G},{D}] x {n} step {r}"
+        runs = [fa.flash_attention_block(q, k, v, 0, 0, ring=(n, r))
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(*runs)]
+        require(f"{name}: two launches give the same bits (o, lse: {same})",
+                all(same))
+        o, lse = runs[0]
+        o_p, lse_p = fa.flash_attention_block_plain(q, k, v, 0, 0,
+                                                    ring=(n, r))
+        err = check(f"{name} o", o, o_p, *FWD_TOL[bf])
+        WGMMA_ERR["fwd"] = max(WGMMA_ERR["fwd"], err)
+        live = lse_p > -1e30
+        check(f"{name} lse (live rows)", torch.where(live, lse, 0.0),
+              torch.where(live, lse_p, 0.0), *LSE_TOL)
+        require(f"{name}: empty rows lse = -1e30 and o = 0 bitwise "
+                f"({int((~live).sum())} rows)",
+                bool((lse[~live] == -1e30).all())
+                and bool((o.float().abs().sum(-1)[~live] == 0).all()))
+        del runs, o, lse, o_p, lse_p, live
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
+def flash_fwd_checks(rng, fa, rng80):
     """Phase 2b: the CUDA flash forward against its plain version; at
-    GPT's shapes (``GPT_FLASH``) each on its route."""
+    GPT's shapes (``GPT_FLASH``) each on its route; d = 80's own cases
+    draw from ``rng80``."""
     def case(label, B, H, S, D, dtype, mask=None, causal=False, keep=1.0,
-             route=None):
-        q, k, v = (randn(rng, (B, H, S, D), dtype) for _ in range(3))
-        seed = seed_tensor(rng) if keep < 1.0 else None
+             route=None, gen=rng):
+        q, k, v = (randn(gen, (B, H, S, D), dtype) for _ in range(3))
+        seed = seed_tensor(gen) if keep < 1.0 else None
         o, lse = fa.flash_attention_fwd(q, k, v, mask=mask, causal=causal,
                                         dropout_keep=keep, seed=seed)
         torch.cuda.synchronize()
@@ -713,6 +778,14 @@ def flash_fwd_checks(rng, fa):
              mask=bert_mask(rng, 2, 200, "cuda"), keep=0.9)
         case("[2,3,1000,64] padded causal", 2, 3, 1000, 64, dtype,
              causal=True)
+        # GPT-3 2.7B's head on the wgmma kernel (64-column halves, the
+        # second filled in part): ragged causal, and the key mask
+        case("[2,3,1000,80] padded causal", 2, 3, 1000, 80, dtype,
+             causal=True, gen=rng80)
+        case("[2,4,512,80] bert-mask", 2, 4, 512, 80, dtype,
+             mask=bert_mask(rng80, 2, 512, "cuda"), gen=rng80)
+        case("[2,4,512,80] bert-mask keep 0.9", 2, 4, 512, 80, dtype,
+             mask=bert_mask(rng80, 2, 512, "cuda"), keep=0.9, gen=rng80)
         # a head the wgmma kernel does not take: the mma.sync kernel
         case("[2,4,512,96] bert-mask keep 0.9", 2, 4, 512, 96, dtype,
              mask=bert_mask(rng, 2, 512, "cuda"), keep=0.9)
@@ -725,9 +798,9 @@ def flash_fwd_checks(rng, fa):
         # more (batch, head) pairs than the 65535 blocks of a grid's y axis
         case("[4100,16,128,32] many-heads", 4100, 16, 128, 32, dtype,
              mask=bert_mask(rng, 4100, 128, "cuda"))
-    for (B, H, S, D), keep, route in GPT_FLASH:
+    for (B, H, S, D), keep, routes in GPT_FLASH:
         case(f"[{B},{H},{S},{D}] causal keep {keep}", B, H, S, D,
-             torch.bfloat16, causal=True, keep=keep, route=route)
+             torch.bfloat16, causal=True, keep=keep, route=routes["fwd"])
         torch.cuda.empty_cache()
     return errs
 
@@ -735,11 +808,11 @@ def flash_fwd_checks(rng, fa):
 def flash_bwd_checks(rng, fa):
     """Phase 2c: the dQ and dK/dV kernels against the plain backward, from
     the same forward outputs (o, lse) and cotangent; at GPT's shapes
-    (``GPT_FLASH``) each on its route and within the spread of the bf16
+    (``GPT_FLASH``) each on its routes and within the spread of the bf16
     terms of each entry (``spread``, causal and unmasked only), as the
     block checks hold them: short causal rows make terms of ~1."""
     def case(label, B, H, S, D, dtype, mask=None, causal=False, keep=1.0,
-             route=None, spread=False):
+             routes=None, spread=False):
         q, k, v, do = (randn(rng, (B, H, S, D), dtype) for _ in range(4))
         seed = seed_tensor(rng) if keep < 1.0 else None
         o, lse = fa.flash_attention_fwd(q, k, v, mask=mask, causal=causal,
@@ -755,9 +828,9 @@ def flash_bwd_checks(rng, fa):
         route_kv = fa.flash_route("dkv", dtype, D, S, S)
         name = (f"flash bwd {label} {str(dtype).split('.')[-1]} (dq "
                 f"{route_dq}, dkv {route_kv})")
-        if route:
-            require(f"{name}: the {route} route",
-                    route == route_dq == route_kv)
+        if routes:
+            require(f"{name}: dq on {routes['dq']}, dkv on {routes['dkv']}",
+                    (route_dq, route_kv) == (routes["dq"], routes["dkv"]))
         if spread:
             drop = None if keep >= 1.0 else (fa.dropout_keep_mask_plain(
                 seed, B * H, S, S, keep).reshape(B, H, S, S).float(), keep)
@@ -820,9 +893,9 @@ def flash_bwd_checks(rng, fa):
              dtype, causal=True, keep=0.9)
         case("[1,2,256,512] widest-head", 1, 2, 256, 512, dtype,
              mask=bert_mask(rng, 1, 256, "cuda"))
-    for (B, H, S, D), keep, route in GPT_FLASH:
+    for (B, H, S, D), keep, routes in GPT_FLASH:
         case(f"[{B},{H},{S},{D}] causal keep {keep}", B, H, S, D,
-             torch.bfloat16, causal=True, keep=keep, route=route,
+             torch.bfloat16, causal=True, keep=keep, routes=routes,
              spread=True)
         torch.cuda.empty_cache()
     return errs
@@ -864,19 +937,20 @@ def bwd_spread(q, k, v, do, lse, dsum, q_off, k_off, ring=None, drop=None):
     return out
 
 
-def block_checks(rng, fa):
+def block_checks(rng, fa, rng80):
     """Phase 2c': the blockwise (ring) forward, dQ and dK/dV kernels
     against their plain versions: one block pair at the full, diagonal,
     empty and partial offsets, a K/V block twice q's length, and every
     step of a 4-rank ring at the main path's shape.  The backward takes
     the forward's own (o, lse) and a random cotangent.  Empty rows must
     give lse = -1e30 and o = 0, and K/V rows that no query sees dk = dv =
-    0, bitwise.  Returns the largest errors of the bf16 ring cases (the
-    main path's)."""
+    0, bitwise.  The d = 80 cases draw from ``rng80``.  Returns the
+    largest errors of the bf16 ring cases (the main path's)."""
     def case(label, q_shape, sk, q_off, k_off, dtype, ring=None):
         B, H, S, D = q_shape
-        q, do = (randn(rng, q_shape, dtype) for _ in range(2))
-        k, v = (randn(rng, (B, H, sk, D), dtype) for _ in range(2))
+        gen = rng80 if D == 80 else rng
+        q, do = (randn(gen, q_shape, dtype) for _ in range(2))
+        k, v = (randn(gen, (B, H, sk, D), dtype) for _ in range(2))
         kw = dict(ring=ring)
         o, lse = fa.flash_attention_block(q, k, v, q_off, k_off, **kw)
         dsum = (do.float() * o.float()).sum(-1)
@@ -937,7 +1011,7 @@ def block_checks(rng, fa):
         return errs
 
     for dtype in (torch.bfloat16, torch.float32):
-        for D in (64, 128):
+        for D in (64, 80, 128):
             S = 256
             for label, q_off, k_off in (("full", S, 0), ("diagonal", 0, 0),
                                         ("empty", 0, S)):
@@ -1318,15 +1392,17 @@ def expect_launches(**per_run):
     return {name: per_run.get(name, 0) for name in COUNTER_NAMES}
 
 
-def flash_launches(n, block=False, bwd=True, route="wgmma"):
+def flash_launches(n, block=False, bwd=True, routes=WGMMA):
     """Counts of ``n`` launches of the flash forward (and, with ``bwd``, of
     dQ and dK/dV) through the self-attention or the blockwise entry points,
-    all on ``route``: keywords for ``expect_launches``."""
+    each on its route of ``routes`` (as ``WGMMA``): keywords for
+    ``expect_launches``."""
     pre = "flash_attention_block" if block else "flash_attention"
-    out = {f"{pre}_fwd": n, f"flash_fwd_{route}": n}
+    out = {f"{pre}_fwd": n, f"flash_fwd_{routes['fwd']}": n}
     if bwd:
-        out.update({f"{pre}_bwd_dq": n, f"flash_bwd_dq_{route}": n,
-                    f"{pre}_bwd_dkv": n, f"flash_bwd_dkv_{route}": n})
+        out.update({f"{pre}_bwd_dq": n, f"flash_bwd_dq_{routes['dq']}": n,
+                    f"{pre}_bwd_dkv": n,
+                    f"flash_bwd_dkv_{routes['dkv']}": n})
     return out
 
 
@@ -1911,19 +1987,19 @@ def ce_sweep(ce, logits, labels, bound_ms, t_fixed):
         f"{bound_ms:.4f} ms")
 
 
-def causal_flash_times(rng, fa, B, H, S, D, keep, route):
+def causal_flash_times(rng, fa, B, H, S, D, keep, routes):
     """The flash forward, dQ and dK/dV kernels at a causal [B,H,S,D] bf16
-    shape and dropout keep, each on ``route``: ms, bound (the causal (row,
-    key) pairs' products, or the bytes; dropout adds neither), plain ms
-    (at the same keep) and scaled_dot_product_attention (causal, no
-    dropout) and its backward as the yardstick (each captured in a CUDA
-    graph, ``graph_ms``).  Returns {"flash_fwd_<route>",
-    "flash_bwd_dq_<route>", "flash_bwd_dkv_<route>": {...}}."""
+    shape and dropout keep, each on its route of ``routes`` ({"fwd": ...,
+    "dq": ..., "dkv": ...}): ms, bound (the causal (row, key) pairs'
+    products, or the bytes; dropout adds neither), plain ms (at the same
+    keep) and scaled_dot_product_attention (causal, no dropout) and its
+    backward as the yardstick (each captured in a CUDA graph,
+    ``graph_ms``).  Returns {"flash_fwd_<route>", "flash_bwd_dq_<route>",
+    "flash_bwd_dkv_<route>": {...}}."""
     bf = torch.bfloat16
-    routes = [fa.flash_route(kern, bf, D, S, S) for kern in ("fwd", "dq",
-                                                               "dkv")]
-    require(f"timed flash kernels at [{B},{H},{S},{D}] bf16 take the {route} "
-            f"route ({routes})", routes == [route] * 3)
+    got = {kern: fa.flash_route(kern, bf, D, S, S) for kern in routes}
+    require(f"timed flash kernels at [{B},{H},{S},{D}] bf16 take the routes "
+            f"{routes} ({got})", got == routes)
     q, k, v, do = (torch.randn(B, H, S, D, device="cuda", dtype=bf)
                    for _ in range(4))
     kw = dict(causal=True, dropout_keep=keep,
@@ -1941,18 +2017,18 @@ def causal_flash_times(rng, fa, B, H, S, D, keep, route):
     yardstick_floor(f"sdpa causal backward [{B},{H},{S},{D}]", t_bwd_lib,
                     10 * pairs * D)
     out = {
-        f"flash_fwd_{route}": dict(
+        f"flash_fwd_{routes['fwd']}": dict(
             ms=graph_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw)),
             plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
                              3),
             library_ms=t_lib,
             bound=bound(4 * n * 2 + B * H * S * 4, 4 * pairs * D, bf)),
-        f"flash_bwd_dq_{route}": dict(
+        f"flash_bwd_dq_{routes['dq']}": dict(
             ms=graph_ms(lambda: fa.flash_attention_bwd_dq(
                 q, k, v, do, lse, dsum, **kw)),
             plain_ms=t_bwd_plain, library_ms=t_bwd_lib,
             bound=bound(5 * n * 2 + 2 * B * H * S * 4, 6 * pairs * D, bf)),
-        f"flash_bwd_dkv_{route}": dict(
+        f"flash_bwd_dkv_{routes['dkv']}": dict(
             ms=graph_ms(lambda: fa.flash_attention_bwd_dkv(
                 q, k, v, do, lse, dsum, **kw)),
             plain_ms=t_bwd_plain, library_ms=t_bwd_lib,
@@ -1965,8 +2041,9 @@ def causal_flash_times(rng, fa, B, H, S, D, keep, route):
             f"{'' if 'fwd' in name else ' backward'} (causal, no dropout) "
             f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x)")
     fwd, dq, dkv = (r["ms"] for r in out.values())
-    log(f"kernel flash {route} [{B},{H},{S},{D}] causal keep {keep}: dQ + "
-        f"dK/dV {dq + dkv:.4f} ms against scaled_dot_product_attention's "
+    log(f"kernel flash {'/'.join(routes.values())} [{B},{H},{S},{D}] causal "
+        f"keep {keep}: dQ + dK/dV {dq + dkv:.4f} ms against "
+        f"scaled_dot_product_attention's "
         f"backward {t_bwd_lib:.4f} ms ({(dq + dkv) / t_bwd_lib:.2f}x); "
         f"forward {fwd / t_lib:.2f}x")
     return out
@@ -2984,7 +3061,7 @@ def cross_device_llama(ht, models, ht_parallel, fns, rng, seed):
     cross_device_lm(
         ht, "Llama cp=4", lambda: build_llama(ht, models, c), c, fns, rng,
         seed + 10, (expect_launches(
-            **flash_launches(8, block=True, route="simt"),
+            **flash_launches(8, block=True, routes=SIMT),
             softmax_ce_fwd=1, softmax_ce_bwd=1),
             "the block kernels 8/8/8, f32 on the plain-FMA route"),
         ("f32 on both sides; a loss of ~10.4 whose 32000-way logsumexp "
@@ -3628,13 +3705,20 @@ def cross_device_serving(ht, models, seed):
 # bench_gpt_e2e (bench.py:303-345): GPT-small (GPT_CONFIGS["gpt-small"]:
 # hidden 768, 12 layers, 12 heads of 64), V=50257, B=8 S=1024; nothing cut
 GPT_SMALL = dict(preset="gpt-small", L=12, B=8, S=1024, V=50257,
-                 route="wgmma")
+                 routes=WGMMA)
 # GPT-3 2.7B's published widths (GPT_CONFIGS["gpt-2.7b"]; Brown et al. 2020,
 # Table 2.1: d_model 2560, 32 heads of 80, context 2048) at bench_gpt_layer's
 # B=2 S=2048 (bench.py:198); 8 of its 32 layers: the whole model's f32
 # masters, gradients, Adam moments, update temporaries and bf16 copy take
 # ~34 bytes a param, ~90 GB for 2.65 B params, more than the card holds
-GPT_27B = dict(preset="gpt-2.7b", L=8, B=2, S=2048, V=50257, route="mma")
+GPT_27B = dict(preset="gpt-2.7b", L=8, B=2, S=2048, V=50257, routes=D80)
+
+
+def gpt_attention_shape(models, c):
+    """(B, heads, S, d) of the attention of the GPT path ``c``."""
+    w = models.GPT_CONFIGS[c["preset"]]
+    return (c["B"], w["num_heads"], c["S"],
+            w["hidden_size"] // w["num_heads"])
 
 
 def build_gpt(ht, models, c, dropout):
@@ -3659,7 +3743,8 @@ def gpt_paths(ht, models, fns, rng, steps, seed, captures):
     f32 masters, dropout 0.1 (hidden and attention, in the flash kernels),
     Zipf ids with the ids rolled by one as labels: GPT-small at
     bench_gpt_e2e's full size (the wgmma flash kernels) and GPT-3 2.7B's
-    widths, depth cut (d = 80: the mma.sync flash kernels); each with
+    widths, depth cut (d = 80: the wgmma forward, the mma.sync dQ and
+    dK/dV); each with
     phase 3f's captured-against-eager checks (appended to ``captures``).
     Returns {label: (ms/step, launches)}."""
     out = {}
@@ -3679,7 +3764,7 @@ def gpt_paths(ht, models, fns, rng, steps, seed, captures):
             f"{init_s:.1f} s")
         _, ms, launches = run_path(
             label, step, fns, n, c["B"], expect_launches(
-                **flash_launches(c["L"] * n, route=c["route"]),
+                **flash_launches(c["L"] * n, routes=c["routes"]),
                 softmax_ce_fwd=n, softmax_ce_bwd=n), warmup=warmup)
         log(f"{label}: {c['B'] * c['S'] * 1000 / ms:.1f} tokens/s, "
             f"{c['B'] * 1000 / ms:.3f} samples/s, {ms:.3f} ms/step")
@@ -3709,7 +3794,7 @@ def cross_device_gpt(ht, models, fns, rng, seed):
         ht, "GPT", lambda: build_gpt(ht, models, c, dropout=0.0), c, fns,
         rng,
         seed + 12, (expect_launches(
-            **flash_launches(2, route="simt"), softmax_ce_fwd=1,
+            **flash_launches(2, routes=SIMT), softmax_ce_fwd=1,
             softmax_ce_bwd=1), "the flash kernels 2/2/2 (f32: the "
             "plain-FMA route) and the CE kernels 1/1"),
         ("f32 on both sides; a loss of ~7 whose 1024-way logsumexp and "
@@ -3810,10 +3895,13 @@ def main():
     torch.manual_seed(args.seed)
     dropout_checks(rng, fa)
     kernel_dropout_checks(rng, fa)
-    flash_repeat_checks(rng, fa)
-    fwd_err = flash_fwd_checks(rng, fa)
+    # the d = 80 forward's own checks draw from a generator of their own,
+    # so that the other checks keep the inputs they had before them
+    rng80 = np.random.default_rng((args.seed, 80))
+    flash_repeat_checks(rng, fa, rng80)
+    fwd_err = flash_fwd_checks(rng, fa, rng80)
     bwd_err = flash_bwd_checks(rng, fa)
-    block_err = block_checks(rng, fa)
+    block_err = block_checks(rng, fa, rng80)
     ring_checks(rng, fa, htp)
     ce_err, ce_bwd_err = ce_checks(rng, ce)
     pw_err = pack_write_checks(rng, sd)
@@ -3924,11 +4012,12 @@ def main():
     times.update(blocks["full"])
     c = LLAMA
     times.update(causal_flash_times(rng, fa, c["B"], c["heads"], c["S"],
-                                    c["H"] // c["heads"], 1.0, "wgmma"))
+                                    c["H"] // c["heads"], 1.0, WGMMA))
     # GPT's attention: GPT-small's heads with dropout on the wgmma kernels,
-    # GPT-3 2.7B's d = 80 on the mma.sync kernels; GPT's LM-head CE
-    gpt_times = [causal_flash_times(rng, fa, b, h, s, d, keep, route)
-                 for (b, h, s, d), keep, route in GPT_FLASH]
+    # GPT-3 2.7B's d = 80 on the wgmma forward and the mma.sync dQ and
+    # dK/dV; GPT's LM-head CE
+    gpt_times = [causal_flash_times(rng, fa, b, h, s, d, keep, routes)
+                 for (b, h, s, d), keep, routes in GPT_FLASH]
     ce_times(rng, ce, GPT_SMALL["B"] * GPT_SMALL["S"], GPT_SMALL["V"])
     cross_device_llama(ht, models, htp, fns, rng, args.seed)
     cross_device_resnet(ht, models, rng, args.seed)
@@ -3977,11 +4066,11 @@ def main():
     # for pack_write, bench_moe for row_gather, the cp=4 Llama for the block
     # kernels, the mesh-less Llama for the wgmma kernels, which the BERT and
     # cp=4 paths run too), with path i's GPT-small and GPT-3 2.7B-width
-    # steps added to the flash and CE kernels' and GPT-small's to the wgmma
-    # kernels'; row_gather's times are the sums over one bench_moe step's
-    # three launches; the block kernels' times are the full block's at the
-    # witness's block shape, the wgmma kernels' at the mesh-less Llama's
-    # causal shape
+    # steps added to the flash and CE kernels' and to the wgmma kernels'
+    # (GPT-small's three, the 2.7B widths' forward); row_gather's times
+    # are the sums over one bench_moe step's three launches; the block
+    # kernels' times are the full block's at the witness's block shape, the
+    # wgmma kernels' at the mesh-less Llama's causal shape
     cp_launches = llama["llama cp=4 path"][1]
     meshless = llama["llama mesh-less path"][1]
     gpt_launches = [v[1] for v in gpt.values()]
@@ -4018,20 +4107,23 @@ def main():
     # path i's flash kernels at its own shapes and routes, beside the
     # kernels line, whose flash_attention_* entries sum launches over both
     # routes and carry BERT's wgmma times: launches are those of the path
-    # that runs the shape (i1 the wgmma kernels, i2 the mma.sync ones) at
-    # its attention dropout, keep 0.9; none at keep 1
-    gpt_paths_by_route = {GPT_SMALL["route"]: "gpt-small path",
-                          GPT_27B["route"]: "gpt-2.7b-width path"}
+    # that runs the shape (i1 the wgmma kernels, i2 the wgmma forward and
+    # the mma.sync dQ and dK/dV) at its attention dropout, keep 0.9; none
+    # at keep 1
+    gpt_paths_by_shape = {gpt_attention_shape(models, GPT_SMALL):
+                          "gpt-small path",
+                          gpt_attention_shape(models, GPT_27B):
+                          "gpt-2.7b-width path"}
     gpt_flash = [
         {"name": name, "route": "cuda", "shape": list(shape),
          "causal": True, "keep": keep,
-         "path": gpt_paths_by_route[route] if keep < 1.0 else None,
-         "launches": (gpt[gpt_paths_by_route[route]][1][name]
+         "path": gpt_paths_by_shape[shape] if keep < 1.0 else None,
+         "launches": (gpt[gpt_paths_by_shape[shape]][1][name]
                       if keep < 1.0 else 0),
          "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
          "library_ms": r["library_ms"]}
-        for (shape, keep, route), t in zip(GPT_FLASH, gpt_times)
+        for (shape, keep, _), t in zip(GPT_FLASH, gpt_times)
         for name, r in t.items()]
     log(f"run: {time.perf_counter() - T0:.1f} s from the start to the "
         "result")

@@ -19,11 +19,11 @@
 // matrix out of device memory (one tile at a time in registers), so the
 // traffic stays O(S*d).  Three kernels, one per route, which the Python
 // wrapper names from dtype and shape (`flash_route`) and passes in:
-// - wgmma (bf16, d = 64 or 128): `flash_fwd_wgmma`, built for Hopper
+// - wgmma (bf16, d = 64, 80 or 128): `flash_fwd_wgmma`, built for Hopper
 //   (flash_hopper.cuh).  A persistent block per SM walks (q tile, head)
 //   work items; one producer warp loads each 128-row q tile and its K/V
 //   tiles of 128 keys by TMA into a ring of shared-memory stages on
-//   mbarriers (3 stages at d = 64, 2 at d = 128: 227 KB holds two Q
+//   mbarriers (3 stages at d = 64, 2 at d = 80 and 128: 227 KB holds two Q
 //   buffers and no more), and two consumer warpgroups of 64 rows run both
 //   products on wgmma, Q K^T from shared memory and P V with P from
 //   registers and V, in its natural [key, d] layout, through the
@@ -35,7 +35,12 @@
 //   thread (3 warps share an SM quarter's 16,384), which holds one score
 //   tile and one output accumulator of 64 rows but not a second score
 //   tile, so a warpgroup's softmax does not overlap its own next product;
-//   the two warpgroups' do overlap each other's.
+//   the two warpgroups' do overlap each other's.  At d = 80 (GPT-3 2.7B's
+//   heads) a tile is laid out 128 columns wide, two 64-column halves of
+//   which TMA fills the second only in columns 64-79 (zeros past them);
+//   Q K^T runs 5 k-steps of 16 and P V one m64n80k16 product a 16-key
+//   step, so no product reads a padded column, and O takes 40 registers a
+//   thread where d = 128 takes 64.
 // - mma (bf16 with d % 8 == 0 and d <= 128 otherwise, or ring groups of
 //   64 rows): `flash_fwd_mma`, mma.sync.m16n8k16 on 64x64 tiles loaded
 //   with 16-byte loads and a barrier.
@@ -257,7 +262,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // -------------------------------------------------------------------------
-// Hopper kernel for bf16 heads of d = 64 and 128 (flash_hopper.cuh): a
+// Hopper kernel for bf16 heads of d = 64, 80 and 128 (flash_hopper.cuh): a
 // persistent block of 2 consumer warpgroups, 64 query rows each (a 128-row
 // q tile), and 1 producer warp.  For each work item the producer loads the
 // q tile by TMA into one of two Q buffers, then the item's K/V tiles of 128
@@ -274,11 +279,16 @@ __global__ void __launch_bounds__(kThreads)
 template <int D>
 struct FwdTiles {
   static constexpr int BN = 128;  // keys of a kv tile
-  // stages of K and V: 3 at d = 64 (96 KB), 2 at d = 128 (128 KB); with
-  // the two Q buffers and the masks within 227 KB
+  // 64-column halves of a tile: its layout is 64 * kHalves columns wide,
+  // wider than the D columns of work at d = 80 (flash_hopper.cuh), and a
+  // buffer's bytes, which the producer's mbarriers expect, are what TMA
+  // delivers, zero-filled columns included
+  static constexpr int kHalves = (D + 63) / 64;
+  // stages of K and V: 3 at d = 64 (96 KB), 2 at d = 80 and 128 (128 KB);
+  // with the two Q buffers and the masks within 227 KB
   static constexpr int kStages = D == 64 ? 3 : 2;
-  static constexpr int kQBytes = kHopperBM * D * 2;  // one Q buffer
-  static constexpr int kTileBytes = BN * D * 2;      // one K or V tile
+  static constexpr int kQBytes = kHopperBM * kHalves * 128;  // one Q buffer
+  static constexpr int kTileBytes = BN * kHalves * 128;  // one K or V tile
   static constexpr size_t kSmem = 1024 + 2 * kQBytes +
                                   (size_t)kStages * 2 * kTileBytes +
                                   kStages * BN * sizeof(float) +
@@ -346,7 +356,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
         mbar_wait(q_free(qb), ((qi >> 1) & 1) ^ 1);
         mbar_arrive_expect_tx(q_full(qb), T::kQBytes);
 #pragma unroll
-        for (int h = 0; h < D / 64; ++h)
+        for (int h = 0; h < T::kHalves; ++h)
           tma_load_3d(q_buf(qb) + h * BM * 128, &tq, q_full(qb), h * 64,
                       w.q0, w.bh);
       }
@@ -365,7 +375,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
         if (lane == 0) {
           mbar_arrive_expect_tx(full(s), 2 * T::kTileBytes);
 #pragma unroll
-          for (int h = 0; h < D / 64; ++h) {
+          for (int h = 0; h < T::kHalves; ++h) {
             tma_load_3d(k_tile(s) + h * BN * 128, &tk, full(s), h * 64, k0,
                         w.bh);
             tma_load_3d(k_tile(s) + T::kTileBytes + h * BN * 128, &tv,
@@ -425,7 +435,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       mbar_wait(full(st), (tj / NS) & 1);
       if (j < my_tiles) {
         const uint32_t kt = k_tile(st), vt = kt + T::kTileBytes;
-        // S = Q K^T: 64 rows x BN keys, d / 16 k-steps
+        // S = Q K^T: 64 rows x BN keys, d / 16 k-steps (the fifth of d =
+        // 80 at the start of the second half)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
@@ -522,7 +533,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
           for (int x = 0; x < D / 2; ++x) acc[x] *= alpha[(x >> 1) & 1];
         }
 
-        // O += P V: BN / 16 k-steps of 16 keys, V MN-major (transposed)
+        // O += P V: BN / 16 k-steps of 16 keys, V MN-major (transposed),
+        // its columns from 64 on in the next half (LBO)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
@@ -777,7 +789,7 @@ cudaError_t dispatch_simt(const Args& a) {
 }
 
 // The kernel that `route` names (the Python wrapper's `flash_route`; it is
-// never chosen here): 2 = wgmma (bf16, d = 64 or 128, Sq and Sk >= 128, a
+// never chosen here): 2 = wgmma (bf16, d = 64, 80 or 128, Sq and Sk >= 128, a
 // ring group a whole number of 128-row q tiles), 1 = mma.sync (bf16, d % 8
 // == 0, d <= 128), 0 = plain FMA (f32, or bf16 heads the others do not
 // take, d <= 512).  A route the shape does not fit is refused.
@@ -788,6 +800,7 @@ cudaError_t dispatch(int route, int is_bf16, const Args& a) {
     if (!is_bf16 || a.bl.Sq < kHopperBM || a.bl.Sk < kHopperBM)
       return cudaErrorInvalidValue;
     if (a.d == 64) return launch_wgmma<64>(a);
+    if (a.d == 80) return launch_wgmma<80>(a);
     if (a.d == 128) return launch_wgmma<128>(a);
     return cudaErrorInvalidValue;
   }

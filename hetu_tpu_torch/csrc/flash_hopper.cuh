@@ -5,12 +5,17 @@
 // complete on an mbarrier, wgmma descriptors and the wgmma products the
 // kernels issue, all in inline PTX.
 //
-// Shared-memory layout of a tile: a [rows, d] bf16 tile is stored as d / 64
-// column halves of [rows][64], each row 128 bytes, each half swizzled by
-// TMA's 128-byte pattern (CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of
-// row r sits at chunk c ^ (r % 8) of its 1024-byte atom of 8 rows).  wgmma
-// reads it through descriptors of layout type SWIZZLE_128B, which apply the
-// same pattern to the address bits, so every tile starts 1024-byte aligned.
+// Shared-memory layout of a tile: a [rows, d] bf16 tile is stored as
+// ceil(d / 64) column halves of [rows][64], each row 128 bytes, each half
+// swizzled by TMA's 128-byte pattern (CU_TENSOR_MAP_SWIZZLE_128B: the
+// 16-byte chunk c of row r sits at chunk c ^ (r % 8) of its 1024-byte atom of
+// 8 rows).  wgmma reads it through descriptors of layout type SWIZZLE_128B,
+// which apply the same pattern to the address bits, so every tile starts
+// 1024-byte aligned.  A head that is not a multiple of 64 (d = 80) fills its
+// last half only in part: TMA writes zeros into the columns past d, and
+// neither product reads them (Q K^T runs d / 16 k-steps, P V an n = d
+// product), so a tile's layout width (128 at d = 80) and the width of the
+// work (80) differ.
 // - As a K-major operand (the reduction runs along d: Q and dO as A, K and V
 //   as B of Q K^T and dO V^T): atoms of 8 rows stride 1024 bytes (SBO), a
 //   k-step of 16 columns advances the start address by 32 bytes inside the
@@ -312,6 +317,36 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "n"(TRANS_B));
 }
 
+// D (+)= A B, m64n80k16: A from registers, B from shared memory (as
+// wgmma_rs_n64; the 80 columns of B span a whole 64-column half and the
+// first 16 columns of the next, LBO bytes on)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39 "
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+        "n"(TRANS_B));
+}
+
 // D (+)= A B, m64n128k16: A and B from shared memory (descriptors)
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
@@ -393,11 +428,14 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
   else wgmma_ss_n128<TRANS_B>(d, a, b, accumulate);
 }
 
+// ... with A from registers, N = 64, 80 or 128
 template <int N, int TRANS_B>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int accumulate) {
+  static_assert(N == 64 || N == 80 || N == 128, "wgmma_rs: N");
   if constexpr (N == 64) wgmma_rs_n64<TRANS_B>(d, a, b, accumulate);
+  else if constexpr (N == 80) wgmma_rs_n80<TRANS_B>(d, a, b, accumulate);
   else wgmma_rs_n128<TRANS_B>(d, a, b, accumulate);
 }
 
@@ -430,14 +468,16 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The tensor map of a contiguous [n_bh, rows, d] bf16 tensor (d % 64 == 0,
-// base 16-byte aligned) in boxes of box_rows rows x 64 columns, swizzled by
-// 128 bytes; each box is one column half of a tile (header).
+// The tensor map of a contiguous [n_bh, rows, d] bf16 tensor (d >= 64 and
+// d % 8 == 0, so that a row's stride is a multiple of 16 bytes; base
+// 16-byte aligned) in boxes of box_rows rows x 64 columns, swizzled by 128
+// bytes; each box is one column half of a tile (header), its columns past
+// d zeros.
 inline cudaError_t encode_rows(CUtensorMap* map, const void* base, int n_bh,
                                int rows, int d, int box_rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || d % 64 != 0)
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || d % 8 != 0 || d < 64)
     return cudaErrorInvalidValue;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
                               (cuuint64_t)n_bh};

@@ -21,6 +21,8 @@ bf16:
 - the Mistral-width witness's block, q and K/V [1,32,2048,128]: the full
   block (q at 2048, K/V at 0), the diagonal one and the empty one (K/V at
   2048, the backward from the diagonal's lse), forward, dQ and dK/dV;
+- GPT-3 2.7B's heads (path i2 of chip_smoke.py), causal [2,32,2048,80]:
+  the forward, dQ and dK/dV at keep 1 and at keep 0.9;
 - the host's time per call (microseconds, not ms) of the forward, dQ and
   dK/dV wrappers at [1,1,128,64], where the card outruns the host.
 
@@ -128,6 +130,20 @@ for case, q_off, k_off in (("full", S, 0), ("diagonal", 0, 0),
     out[f"d128 {case} block dkv"] = median_ms(
         lambda: fa.flash_attention_block_bwd_dkv(q, k, v, do, lse, dsum,
                                                  q_off, k_off))
+# GPT-3 2.7B's heads, causal, without and with attention dropout
+B, H, S, D = 2, 32, 2048, 80
+q, k, v, do = (rand(B, H, S, D) for _ in range(4))
+for keep in (1.0, 0.9):
+    kw = dict(causal=True, dropout_keep=keep,
+              seed=seed if keep < 1.0 else None)
+    out[f"d80 causal fwd keep {keep:g}"] = median_ms(
+        lambda: fa.flash_attention_fwd(q, k, v, **kw))
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    dsum = (do.float() * o.float()).sum(-1)
+    out[f"d80 causal dq keep {keep:g}"] = median_ms(
+        lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, dsum, **kw))
+    out[f"d80 causal dkv keep {keep:g}"] = median_ms(
+        lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, dsum, **kw))
 # host time of a call, at a shape whose kernels take the card less time
 # than the host needs to launch them: the wrapper, its argument checks and
 # (wgmma) the tensor maps' encoding, the launch

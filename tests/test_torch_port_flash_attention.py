@@ -41,7 +41,7 @@ def _port(q, k, v, mask, causal):
 
 
 @pytest.mark.parametrize("S", [128, 256, 200])
-@pytest.mark.parametrize("D", [64, 40])
+@pytest.mark.parametrize("D", [64, 40, 80])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("mask_kind", [None, "bert"])
 def test_flash_output_matches_pallas(S, D, causal, mask_kind):

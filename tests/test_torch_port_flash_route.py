@@ -6,8 +6,9 @@ TMA-fed stages, wgmma products), "mma" (mma.sync m16n8k16) or "simt"
 (plain FMA).
 Pinned here: the route at every main path's shape; that every shape the
 kernels accepted before keeps its kernel or moves from "mma" to "wgmma"
-exactly where the documented condition holds; and that a CPU tensor still
-takes the plain version, counting no launch of any route.
+exactly where the documented condition holds (for the forward at d = 80
+too, while dQ and dK/dV at d = 80 stay on mma.sync); and that a CPU
+tensor still takes the plain version, counting no launch of any route.
 """
 
 import itertools
@@ -34,7 +35,7 @@ MAIN_PATHS = [
     ("bert fwd", "fwd", BF16, 64, 512, 512, 1),
     ("bert dq", "dq", BF16, 64, 512, 512, 1),
     ("bert dkv", "dkv", BF16, 64, 512, 512, 1),
-    # bench_llama mesh-less, causal [8,12,1024,64]
+    # bench_llama mesh-less and GPT-small (path i1), causal [8,12,1024,64]
     ("llama fwd", "fwd", BF16, 64, 1024, 1024, 1),
     ("llama dq", "dq", BF16, 64, 1024, 1024, 1),
     ("llama dkv", "dkv", BF16, 64, 1024, 1024, 1),
@@ -51,22 +52,33 @@ MAIN_PATHS = [
     ("block dq", "dq", BF16, 128, 2048, 2048, 1),
     ("block dkv", "dkv", BF16, 128, 2048, 2048, 1),
 ]
+# GPT-3 2.7B's widths (path i2), causal [2,32,2048,80] with dropout: the
+# forward on the wgmma kernel, dQ and dK/dV on the mma.sync ones
+GPT_27B_PATH = [
+    ("gpt-2.7b fwd", "fwd", BF16, 80, 2048, 2048, 1, "wgmma"),
+    ("gpt-2.7b dq", "dq", BF16, 80, 2048, 2048, 1, "mma"),
+    ("gpt-2.7b dkv", "dkv", BF16, 80, 2048, 2048, 1, "mma"),
+]
 
 
-@pytest.mark.parametrize("case", MAIN_PATHS, ids=[c[0] for c in MAIN_PATHS])
+@pytest.mark.parametrize(
+    "case", [c + ("wgmma",) for c in MAIN_PATHS] + GPT_27B_PATH,
+    ids=[c[0] for c in MAIN_PATHS + GPT_27B_PATH])
 def test_main_path_routes(case):
-    _, kernel, dtype, d, sq, sk, n = case
-    assert fa.flash_route(kernel, dtype, d, sq, sk, n) == "wgmma"
+    _, kernel, dtype, d, sq, sk, n, want = case
+    assert fa.flash_route(kernel, dtype, d, sq, sk, n) == want
 
 
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_every_accepted_shape_keeps_its_kernel_or_moves_to_wgmma(kernel):
     """Every (dtype, d, S, ring) the wrappers accept: the kernel it took
     before, or "wgmma" in place of "mma" exactly on bf16 heads of d = 64
-    or 128 with Sq, Sk >= 128 whose ring groups hold whole 128-row tiles
-    of the kernel's items: q rows for the forward and dQ, K/V rows for
-    dK/dV (here Sq = Sk, so the two lengths agree)."""
-    ds = [8, 16, 32, 40, 48, 64, 72, 96, 120, 128, 136, 256, 264, 512]
+    or 128 (and 80 for the forward alone) with Sq, Sk >= 128 whose ring
+    groups hold whole 128-row tiles of the kernel's items: q rows for the
+    forward and dQ, K/V rows for dK/dV (here Sq = Sk, so the two lengths
+    agree)."""
+    heads = (64, 80, 128) if kernel == "fwd" else (64, 128)
+    ds = [8, 16, 32, 40, 48, 64, 72, 80, 96, 120, 128, 136, 256, 264, 512]
     lengths = [128, 192, 200, 256, 384, 512, 1000, 1024, 2048]
     for dtype, d, s, n in itertools.product((BF16, F32), ds, lengths,
                                             (1, 2, 3, 4, 8)):
@@ -75,7 +87,7 @@ def test_every_accepted_shape_keeps_its_kernel_or_moves_to_wgmma(kernel):
         before = _route_before(dtype, d)
         got = fa.flash_route(kernel, dtype, d, s, s, n)
         group = s // n  # Sq / n for fwd and dq, Sk / n for dkv
-        moves = (dtype == BF16 and d in (64, 128)
+        moves = (dtype == BF16 and d in heads
                  and (n == 1 or group % 128 == 0))
         assert got == ("wgmma" if moves else before), (dtype, d, s, n)
 
@@ -88,6 +100,44 @@ def test_short_blocks_keep_the_mma_kernel():
     # d = 96 and f32 keep theirs
     assert fa.flash_route("fwd", BF16, 96, 1024, 1024) == "mma"
     assert fa.flash_route("dq", F32, 64, 1024, 1024) == "simt"
+
+
+# (kernel, d, Sq, Sk, ring groups, route) at the edges of the d = 80 and
+# d = 96 gates: the forward at d = 80 takes the wgmma kernel under the
+# rule of d = 64 and 128; dQ and dK/dV at d = 80, 64-row ring groups,
+# S < 128 and every launch at d = 96 stay on mma.sync
+HEAD_EDGES = [
+    ("fwd", 80, 2048, 2048, 1, "wgmma"),
+    ("fwd", 80, 1000, 1000, 1, "wgmma"),   # ragged S, masked in-kernel
+    ("fwd", 80, 128, 128, 1, "wgmma"),     # one 128-row q tile
+    ("fwd", 80, 8192, 8192, 4, "wgmma"),   # ring groups of 2048 rows
+    ("fwd", 80, 512, 1024, 2, "wgmma"),    # 256-row q groups
+    ("dq", 80, 2048, 2048, 1, "mma"),
+    ("dkv", 80, 2048, 2048, 1, "mma"),
+    ("dq", 80, 8192, 8192, 4, "mma"),
+    ("dkv", 80, 8192, 8192, 4, "mma"),
+    ("fwd", 80, 256, 256, 4, "mma"),       # 64-row ring groups
+    ("fwd", 80, 768, 768, 4, "mma"),       # 192-row groups: 1.5 q tiles
+    ("fwd", 80, 128, 256, 2, "mma"),       # 64-row q groups
+    ("fwd", 80, 127, 127, 1, "mma"),       # S below one q tile
+    ("fwd", 80, 128, 64, 1, "mma"),        # Sk below 128
+    ("fwd", 96, 2048, 2048, 1, "mma"),
+    ("dq", 96, 2048, 2048, 1, "mma"),
+    ("dkv", 96, 2048, 2048, 1, "mma"),
+    ("fwd", 96, 8192, 8192, 4, "mma"),
+    ("fwd", 96, 256, 256, 4, "mma"),
+    ("fwd", 96, 127, 127, 1, "mma"),
+]
+
+
+@pytest.mark.parametrize("case", HEAD_EDGES,
+                         ids=[f"{c[0]}-d{c[1]}-{c[2]}x{c[3]}-n{c[4]}"
+                              for c in HEAD_EDGES])
+def test_d80_and_d96_gate_edges(case):
+    kernel, d, sq, sk, n, want = case
+    assert fa.flash_route(kernel, BF16, d, sq, sk, n) == want
+    # f32 at either head stays on plain FMA
+    assert fa.flash_route(kernel, F32, d, sq, sk, n) == "simt"
 
 
 # (dtype, d, Sq, Sk, ring groups, route) at the edges of the dK/dV gate
