@@ -12,25 +12,26 @@ Phases, each fatal on failure (exit 1, no result lines):
    the MoE row gather), all started together, then Triton's compiler for
    the softmax-CE forward and backward.  The ptxas report names each
    kernel's registers and spill stores (the wgmma kernels, and any that
-   spills); the d = 80 wgmma forward must spill nothing.
+   spills); the d = 80 wgmma forward and dK/dV must spill nothing.
 2. Kernels against their plain PyTorch versions on the card, on the same
    inputs: the dropout keep bits bitwise, of the helper and inside the
    wgmma forward, dQ and dK/dV kernels (d = 64 and 128), and at GPT-3
-   2.7B's d = 80 inside the wgmma forward and the mma.sync dQ and dK/dV;
+   2.7B's d = 80 inside the wgmma forward and dK/dV and the mma.sync dQ;
    two launches of each wgmma and mma.sync kernel give the same bits (at
    BERT's, Llama's, ragged, the d = 128 block and GPT's shapes, d = 80
    ragged, causal and under the key mask, the empty, diagonal and full
    blocks' dK/dV, the full one also against its plain version, and the
-   d = 80 blockwise forward at every step of a 4-rank ring of
-   [1,32,2048,80] blocks, also against its plain version); the flash
-   forward (with and without dropout), dQ, dK/dV
+   d = 80 blockwise forward and dK/dV at every step of a 4-rank ring of
+   [1,32,2048,80] blocks, also against their plain versions, unseen K/V
+   rows dk = dv = 0 bitwise); the flash forward (with and without
+   dropout), dQ, dK/dV
    and the CE forward and backward at the main paths' shapes (the wgmma
-   route for bf16 heads of 64 and 128, and 80 for the forward) and at
-   ragged, causal, fully-masked, d = 80 (ragged causal, key mask),
+   route for bf16 heads of 64 and 128, and 80 for the forward and dK/dV)
+   and at ragged, causal, fully-masked, d = 80 (ragged causal, key mask),
    d = 96 (the mma.sync route), wide-head and f32 ones;
    at GPT's causal shapes, GPT-small's [8,12,1024,64] at keep 0.9 (wgmma)
-   and GPT-3 2.7B's [2,32,2048,80] at keep 0.9 and 1 (the forward on
-   wgmma, dQ and dK/dV on mma.sync), each on its route, dQ, dK and dV
+   and GPT-3 2.7B's [2,32,2048,80] at keep 0.9 and 1 (the forward and
+   dK/dV on wgmma, dQ on mma.sync), each on its route, dQ, dK and dV
    within the spread of their bf16 terms; the
    CE at GPT's V = 50257, [8192,50257] and
    [4096,50257] bf16, with out-of-range labels (loss = lse there);
@@ -173,8 +174,8 @@ Phases, each fatal on failure (exit 1, no result lines):
       ms/step, peak memory; phase f.  i2: GPT-3 2.7B's published widths
       (hidden 2560, 32 heads of d = 80, FFN 10240, V = 50257) at
       bench_gpt_layer's B=2 S=2048, 8 of its 32 layers: 2 warm-up and 3
-      timed steps, per step 8 forward launches on the wgmma kernel and 8
-      dQ and 8 dK/dV launches on the mma.sync ones, 1/1 CE; phase f at
+      timed steps, per step 8 forward and 8 dK/dV launches on the wgmma
+      kernels and 8 dQ launches on the mma.sync one, 1/1 CE; phase f at
       the witness's counts (3 steps, ``run_steps(5)``).
    Each path's step is broken down by kernel class under torch.profiler.
    Then each kernel is timed at the paths' shapes beside its bound, its
@@ -204,7 +205,7 @@ Phases, each fatal on failure (exit 1, no result lines):
    scaled_dot_product_attention (the yardstick) and its backward; the
    wgmma forward, dQ and dK/dV at the mesh-less Llama's causal
    [8,12,1024,64], and at keep 0.9 (GPT-small's); at GPT-3 2.7B's causal
-   [2,32,2048,80] the wgmma forward and the mma.sync dQ and dK/dV, at keep
+   [2,32,2048,80] the wgmma forward and dK/dV and the mma.sync dQ, at keep
    1 and 0.9, beside the causal scaled_dot_product_attention and its
    backward; BERT's dQ and
    dK/dV at keep 1 beside keep 0.9; the CE forward and backward at
@@ -474,6 +475,17 @@ def ptxas_report(text):
     return [tuple(row) for row in out]
 
 
+# the d = 80 wgmma kernels that must spill nothing, by source: the
+# (demangled, mangled) name of each instance
+D80_SPILL_FREE = {
+    "flash_attention_fwd.cu": (("flash_fwd_wgmma<80>",
+                                "flash_fwd_wgmmaILi80E"),),
+    "flash_attention_bwd.cu": (("flash_bwd_dkv_wgmma<80, false>",
+                                "flash_bwd_dkv_wgmmaILi80ELb0E"),
+                               ("flash_bwd_dkv_wgmma<80, true>",
+                                "flash_bwd_dkv_wgmmaILi80ELb1E"))}
+
+
 def build_kernels(build, ce):
     """One nvcc per CUDA source, all at once; then the Triton kernels."""
     t0 = time.perf_counter()
@@ -492,12 +504,12 @@ def build_kernels(build, ce):
             if "wgmma" in name or spill:
                 log(f"  {source}: {name}: {regs} registers, {spill} bytes "
                     "spill stores")
-        if source == "flash_attention_fwd.cu":
-            # the d = 80 forward's 40-register O fits beside its scores
-            d80 = [b for n, _, b in report if "flash_fwd_wgmma<80>" in n
-                   or "flash_fwd_wgmmaILi80E" in n]
-            require("ptxas: flash_fwd_wgmma<80> built with 0 bytes of spill "
-                    f"stores ({d80})", d80 == [0])
+        # the d = 80 forward's 40-register O fits beside its scores, and
+        # dK/dV's two 40-register accumulators beside S^T and dP^T
+        for demangled, mangled in D80_SPILL_FREE.get(source, ()):
+            d80 = [b for n, _, b in report if demangled in n or mangled in n]
+            require(f"ptxas: {demangled} built with 0 bytes of spill stores "
+                    f"({d80})", d80 == [0])
     t0 = time.perf_counter()
     probe = torch.zeros(8, 1024, device="cuda", dtype=torch.bfloat16)
     labels = torch.zeros(8, dtype=torch.int32, device="cuda")
@@ -553,7 +565,7 @@ WGMMA_ERR = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
 def kernel_dropout_checks(rng, fa):
     """Phase 2a': the keep bits inside the wgmma forward, dQ and dK/dV
     kernels (d = 64 and 128) and, at GPT-3 2.7B's d = 80, inside the
-    wgmma forward and the mma.sync dQ and dK/dV, bitwise.  With q = 0
+    wgmma forward and dK/dV and the mma.sync dQ, bitwise.  With q = 0
     every key of a row has p = 1/S; with V (and K for dQ) holding the
     identity on keys [p d, (p + 1) d) and zeros elsewhere, o[i, c] =
     keep(i, p d + c) / (keep S), and with dO = 1 and D = 0, dQ[i, c] =
@@ -605,10 +617,10 @@ def kernel_dropout_checks(rng, fa):
 
 
 # the route of each flash kernel at a shape (flash_attention.flash_route):
-# all three on wgmma at bf16 d = 64 and 128; at d = 80 the forward on
-# wgmma, dQ and dK/dV on mma.sync; f32 on plain FMA
+# all three on wgmma at bf16 d = 64 and 128; at d = 80 the forward and
+# dK/dV on wgmma, dQ on mma.sync; f32 on plain FMA
 WGMMA = dict(fwd="wgmma", dq="wgmma", dkv="wgmma")
-D80 = dict(fwd="wgmma", dq="mma", dkv="mma")
+D80 = dict(fwd="wgmma", dq="mma", dkv="wgmma")
 SIMT = dict(fwd="simt", dq="simt", dkv="simt")
 # GPT's attention (path i): GPT-small's causal heads with dropout on the
 # wgmma kernels; GPT-3 2.7B's d = 80 heads (bench_gpt_layer's [2,32,2048,80],
@@ -625,7 +637,7 @@ def flash_repeat_checks(rng, fa, rng80):
     d = 80 (ragged causal, and the key mask at keep 0.9; inputs from
     ``rng80``) and GPT's (``GPT_FLASH``) shapes, then the blockwise dK/dV
     at the witness's empty, diagonal and full blocks, the full one also
-    against its plain version, and the d = 80 blockwise forward
+    against its plain version, and the d = 80 blockwise forward and dK/dV
     (``d80_ring_checks``)."""
     bf = torch.bfloat16
     for gen, (B, H, S, D), causal, masked, keep in (
@@ -692,16 +704,20 @@ def flash_repeat_checks(rng, fa, rng80):
 
 
 def d80_ring_checks(rng, fa):
-    """The d = 80 blockwise forward on the wgmma kernel at every step of
-    a 4-rank ring of [1,32,2048,80] blocks (q, K/V [1,32,8192,80]): step 0
-    runs the diagonal blocks, steps 1-3 full ones (rank g >= r) and empty
-    ones (g < r).  Two launches give the same bits; o and lse (live rows)
-    agree with the plain version; rows with no live key get lse = -1e30
-    and o = 0 bitwise."""
+    """The d = 80 blockwise forward and dK/dV on the wgmma kernels at every
+    step of a 4-rank ring of [1,32,2048,80] blocks (q, K/V
+    [1,32,8192,80]): step 0 runs the diagonal blocks, steps 1-3 full ones
+    (rank g >= r) and empty ones (g < r).  Two launches give the same
+    bits; o and lse (live rows) agree with the plain version, dk and dv
+    (from the step's own o and lse and a random cotangent) within the
+    spread of their bf16 terms; rows with no live key get lse = -1e30 and
+    o = 0, K/V rows that no query sees dk = dv = 0, bitwise."""
     bf = torch.bfloat16
     B, H, G, D, n = 1, 32, 2048, 80, 4
-    assert fa.flash_route("fwd", bf, D, n * G, n * G, n) == "wgmma"
+    assert all(fa.flash_route(kern, bf, D, n * G, n * G, n) == "wgmma"
+               for kern in ("fwd", "dkv"))
     q, k, v = (randn(rng, (B, H, n * G, D), bf) for _ in range(3))
+    do = randn(rng, (B, H, n * G, D), bf)
     for r in range(n):
         name = f"wgmma block ring [{B},{H},{G},{D}] x {n} step {r}"
         runs = [fa.flash_attention_block(q, k, v, 0, 0, ring=(n, r))
@@ -722,8 +738,36 @@ def d80_ring_checks(rng, fa):
                 f"({int((~live).sum())} rows)",
                 bool((lse[~live] == -1e30).all())
                 and bool((o.float().abs().sum(-1)[~live] == 0).all()))
-        del runs, o, lse, o_p, lse_p, live
-    del q, k, v
+        dsum = (do.float() * o.float()).sum(-1)
+        runs = [fa.flash_attention_block_bwd_dkv(q, k, v, do, lse, dsum, 0,
+                                                 0, ring=(n, r))
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(*runs)]
+        require(f"{name} dK/dV: two launches give the same bits (dk, dv: "
+                f"{same})", all(same))
+        dk, dv = runs[0]
+        _, dk_p, dv_p = fa.flash_attention_block_bwd_plain(
+            q, k, v, do, lse_p, dsum, 0, 0, ring=(n, r))
+        _, sp_k, sp_v = bwd_spread(q, k, v, do, lse_p, dsum, 0, 0, (n, r))
+        atol, _, rtol = BWD_TOL[bf]
+        for g, got, want, sp in (("dk", dk, dk_p, sp_k),
+                                 ("dv", dv, dv_p, sp_v)):
+            err = check_spread(
+                f"{name} {g}", got, want, atol, rtol, sp,
+                "both sides round dS and P~ to bf16 before their products; "
+                "a term whose f32 value the two compute in another order "
+                "may round one ulp apart, and short causal rows make terms "
+                "of ~1")
+            WGMMA_ERR["dkv"] = max(WGMMA_ERR["dkv"], err)
+        dead = dead_kv_rows(G * n, G * n, 0, 0, (n, r))
+        require(f"{name}: K/V rows no query sees get dk = dv = 0 bitwise "
+                f"({int(dead.sum())} rows)",
+                bool((dk[:, :, dead] == 0).all())
+                and bool((dv[:, :, dead] == 0).all()))
+        del (runs, o, lse, o_p, lse_p, live, dsum, dk, dv, dk_p, dv_p, sp_k,
+             sp_v)
+    del q, k, v, do
     torch.cuda.empty_cache()
 
 
@@ -805,16 +849,17 @@ def flash_fwd_checks(rng, fa, rng80):
     return errs
 
 
-def flash_bwd_checks(rng, fa):
+def flash_bwd_checks(rng, fa, rng80):
     """Phase 2c: the dQ and dK/dV kernels against the plain backward, from
     the same forward outputs (o, lse) and cotangent; at GPT's shapes
     (``GPT_FLASH``) each on its routes and within the spread of the bf16
     terms of each entry (``spread``, causal and unmasked only), as the
-    block checks hold them: short causal rows make terms of ~1."""
+    block checks hold them: short causal rows make terms of ~1.  d = 80's
+    own cases draw from ``rng80``."""
     def case(label, B, H, S, D, dtype, mask=None, causal=False, keep=1.0,
-             routes=None, spread=False):
-        q, k, v, do = (randn(rng, (B, H, S, D), dtype) for _ in range(4))
-        seed = seed_tensor(rng) if keep < 1.0 else None
+             routes=None, spread=False, gen=rng):
+        q, k, v, do = (randn(gen, (B, H, S, D), dtype) for _ in range(4))
+        seed = seed_tensor(gen) if keep < 1.0 else None
         o, lse = fa.flash_attention_fwd(q, k, v, mask=mask, causal=causal,
                                         dropout_keep=keep, seed=seed)
         grads = fa.flash_attention_bwd(q, k, v, o, lse, do, mask=mask,
@@ -885,6 +930,12 @@ def flash_bwd_checks(rng, fa):
              mask=bert_mask(rng, 2, 200, "cuda"), keep=0.9)
         case("[2,3,1000,64] padded causal", 2, 3, 1000, 64, dtype,
              causal=True)
+        # GPT-3 2.7B's head on the wgmma dK/dV kernel (64-column halves,
+        # the second filled in part): ragged causal, and the key mask
+        case("[2,3,1000,80] padded causal", 2, 3, 1000, 80, dtype,
+             causal=True, gen=rng80)
+        case("[2,4,512,80] bert-mask keep 0.9", 2, 4, 512, 80, dtype,
+             mask=bert_mask(rng80, 2, 512, "cuda"), keep=0.9, gen=rng80)
         case("[2,4,512,96] bert-mask keep 0.9", 2, 4, 512, 96, dtype,
              mask=bert_mask(rng, 2, 512, "cuda"), keep=0.9)
         case("[1,2,256,128] head-128 keep 0.9", 1, 2, 256, 128, dtype,
@@ -937,6 +988,21 @@ def bwd_spread(q, k, v, do, lse, dsum, q_off, k_off, ring=None, drop=None):
     return out
 
 
+def dead_kv_rows(sq, sk, q_off, k_off, ring=None):
+    """The K/V rows [sk] of a blockwise step that no query sees causally:
+    each row of q sits at q_off + i, each key at k_off + j, a ring rank's
+    at its block's."""
+    n, r = ring or (1, 0)
+    gq, gk = sq // n, sk // n
+    dead = torch.zeros(sk, dtype=torch.bool, device="cuda")
+    for g in range(n):
+        src = (g - r) % n
+        last_row = q_off + g * gq + gq - 1
+        keys = k_off + src * gk + torch.arange(gk, device="cuda")
+        dead[src * gk:(src + 1) * gk] = keys > last_row
+    return dead
+
+
 def block_checks(rng, fa, rng80):
     """Phase 2c': the blockwise (ring) forward, dQ and dK/dV kernels
     against their plain versions: one block pair at the full, diagonal,
@@ -964,9 +1030,10 @@ def block_checks(rng, fa, rng80):
         plain = fa.flash_attention_block_bwd_plain(q, k, v, do, lse_p, dsum,
                                                    q_off, k_off, ring=ring)
         n = (ring or (1, 0))[0]
-        route = fa.flash_route("fwd", dtype, D, S, sk, n)
-        route_kv = fa.flash_route("dkv", dtype, D, S, sk, n)
-        name = f"block {label} {_name(dtype)} ({route}, dkv {route_kv})"
+        route, route_dq, route_kv = (fa.flash_route(kern, dtype, D, S, sk, n)
+                                     for kern in ("fwd", "dq", "dkv"))
+        name = (f"block {label} {_name(dtype)} ({route}, dq {route_dq}, dkv "
+                f"{route_kv})")
         errs = [check(f"{name} o", o, o_p, *FWD_TOL[dtype])]
         live = lse_p > -1e30
         check(f"{name} lse (live rows)", torch.where(live, lse, 0.0),
@@ -991,19 +1058,11 @@ def block_checks(rng, fa, rng80):
                     ("dq", "dk", "dv"), (dq, dk, dv), plain, spread)]
         if route == "wgmma":
             WGMMA_ERR["fwd"] = max(WGMMA_ERR["fwd"], errs[0])
+        if route_dq == "wgmma":
             WGMMA_ERR["dq"] = max(WGMMA_ERR["dq"], errs[1])
         if route_kv == "wgmma":
             WGMMA_ERR["dkv"] = max(WGMMA_ERR["dkv"], *errs[2:])
-        # K/V rows that no query of the step sees (each row of q sits at
-        # q_off + i, each key at k_off + j; a ring rank at its block's)
-        n, r = ring or (1, 0)
-        gq, gk = S // n, sk // n
-        dead = torch.zeros(sk, dtype=torch.bool, device="cuda")
-        for g in range(n):
-            src = (g - r) % n
-            last_row = q_off + g * gq + gq - 1
-            keys = k_off + src * gk + torch.arange(gk, device="cuda")
-            dead[src * gk:(src + 1) * gk] = keys > last_row
+        dead = dead_kv_rows(S, sk, q_off, k_off, ring)
         require(f"{name}: K/V rows no query sees get dk = dv = 0 bitwise "
                 f"({int(dead.sum())} rows)",
                 bool((dk[:, :, dead] == 0).all())
@@ -3743,8 +3802,8 @@ def gpt_paths(ht, models, fns, rng, steps, seed, captures):
     f32 masters, dropout 0.1 (hidden and attention, in the flash kernels),
     Zipf ids with the ids rolled by one as labels: GPT-small at
     bench_gpt_e2e's full size (the wgmma flash kernels) and GPT-3 2.7B's
-    widths, depth cut (d = 80: the wgmma forward, the mma.sync dQ and
-    dK/dV); each with
+    widths, depth cut (d = 80: the wgmma forward and dK/dV, the mma.sync
+    dQ); each with
     phase 3f's captured-against-eager checks (appended to ``captures``).
     Returns {label: (ms/step, launches)}."""
     out = {}
@@ -3895,12 +3954,12 @@ def main():
     torch.manual_seed(args.seed)
     dropout_checks(rng, fa)
     kernel_dropout_checks(rng, fa)
-    # the d = 80 forward's own checks draw from a generator of their own,
-    # so that the other checks keep the inputs they had before them
+    # the d = 80 checks draw from a generator of their own, so that the
+    # other checks keep the inputs they had before them
     rng80 = np.random.default_rng((args.seed, 80))
     flash_repeat_checks(rng, fa, rng80)
     fwd_err = flash_fwd_checks(rng, fa, rng80)
-    bwd_err = flash_bwd_checks(rng, fa)
+    bwd_err = flash_bwd_checks(rng, fa, rng80)
     block_err = block_checks(rng, fa, rng80)
     ring_checks(rng, fa, htp)
     ce_err, ce_bwd_err = ce_checks(rng, ce)
@@ -4014,8 +4073,8 @@ def main():
     times.update(causal_flash_times(rng, fa, c["B"], c["heads"], c["S"],
                                     c["H"] // c["heads"], 1.0, WGMMA))
     # GPT's attention: GPT-small's heads with dropout on the wgmma kernels,
-    # GPT-3 2.7B's d = 80 on the wgmma forward and the mma.sync dQ and
-    # dK/dV; GPT's LM-head CE
+    # GPT-3 2.7B's d = 80 on the wgmma forward and dK/dV and the mma.sync
+    # dQ; GPT's LM-head CE
     gpt_times = [causal_flash_times(rng, fa, b, h, s, d, keep, routes)
                  for (b, h, s, d), keep, routes in GPT_FLASH]
     ce_times(rng, ce, GPT_SMALL["B"] * GPT_SMALL["S"], GPT_SMALL["V"])
@@ -4067,8 +4126,8 @@ def main():
     # kernels, the mesh-less Llama for the wgmma kernels, which the BERT and
     # cp=4 paths run too), with path i's GPT-small and GPT-3 2.7B-width
     # steps added to the flash and CE kernels' and to the wgmma kernels'
-    # (GPT-small's three, the 2.7B widths' forward); row_gather's times
-    # are the sums over one bench_moe step's three launches; the block
+    # (GPT-small's three, the 2.7B widths' forward and dK/dV); row_gather's
+    # times are the sums over one bench_moe step's three launches; the block
     # kernels' times are the full block's at the witness's block shape, the
     # wgmma kernels' at the mesh-less Llama's causal shape
     cp_launches = llama["llama cp=4 path"][1]
@@ -4108,7 +4167,7 @@ def main():
     # kernels line, whose flash_attention_* entries sum launches over both
     # routes and carry BERT's wgmma times: launches are those of the path
     # that runs the shape (i1 the wgmma kernels, i2 the wgmma forward and
-    # the mma.sync dQ and dK/dV) at its attention dropout, keep 0.9; none
+    # dK/dV and the mma.sync dQ) at its attention dropout, keep 0.9; none
     # at keep 1
     gpt_paths_by_shape = {gpt_attention_shape(models, GPT_SMALL):
                           "gpt-small path",

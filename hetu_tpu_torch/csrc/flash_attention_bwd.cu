@@ -53,7 +53,8 @@
 //   the same pieces turned around: an item of 128 keys whose K/V stay in
 //   shared memory, the q tiles streamed past them, two 64 x d accumulators
 //   a warpgroup in an 8-warp block of 255 registers a thread (its header
-//   below).
+//   below), which also takes GPT-3 2.7B's heads of 80 in the forward's
+//   layout of 64-column halves.
 // - mma (bf16 with d % 8 == 0 and d <= 128 that wgmma does not take):
 //   mma.sync.m16n8k16, 4 warps of 16 rows each, 64x64 score tiles in
 //   registers, the Q/dO/K/V tiles in shared memory.
@@ -637,7 +638,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 }
 
 // -------------------------------------------------------------------------
-// Hopper dK/dV kernel for bf16 heads of d = 64 and 128 (`_bwd_dkv_kernel`,
+// Hopper dK/dV kernel for bf16 heads of d = 64, 80, 128 (`_bwd_dkv_kernel`,
 // flash_attention.py:337-407), persistent as the other wgmma kernels.  A
 // work item is (bh, a kv tile of 128 keys); each of the block's 2 consumer
 // warpgroups owns 64 of its keys, keeps their K and V rows in shared
@@ -658,6 +659,14 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 // transposed, so the key mask is constant per thread and lse, D and the
 // row keys are per column.
 //
+// d = 80 (GPT-3 2.7B's heads) takes the forward's layout (`FwdTiles`): a
+// K, V, Q or dO tile is two 64-column halves, the second filled by TMA in
+// columns 64-79 and zeros past them, so a buffer holds, and its mbarrier
+// expects, two full boxes.  S^T and dP^T run 5 k-steps of 16 (the fifth
+// at the start of the second half), and dV and dK one m64n80k16 product
+// each a 16-query step (`wgmma_rs_n80`), dO and Q read across both halves
+// through the descriptor's LBO: no product reads a zero-filled column.
+//
 // Registers: at d = 128 a warpgroup holds two 64 x 128 f32 accumulators
 // (128 a thread), S^T and dP^T (64) and their bf16 fragments, more than
 // the 168 a thread of the 9-warp block of the other two kernels.  So the
@@ -666,11 +675,13 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 // only when the tile it is about to read is not yet loaded.  The dropout
 // code is a template parameter: compiled in where there is no seed, it
 // slowed the kernel (registers and scheduling), though it never ran.  At
-// d = 128 the two warpgroups take turns to issue their products (named
-// barriers), so that one forms P and dS while the other's products run;
-// at d = 64, where the elementwise work (the dropout hash on BERT's path)
-// outweighs the products, the turns made it slower.  PERF.md has both
-// measurements (tools/kernel_ab against the kernel without them).
+// d = 128, and at d = 80 with dropout, the two warpgroups take turns to
+// issue their products (named barriers), so that one forms P and dS while
+// the other's products run; at d = 64, where the elementwise work (the
+// dropout hash on BERT's path) outweighs the products, the turns made it
+// slower, and at d = 80 they cost 1% without dropout and gained 2% with
+// it.  PERF.md has the measurements (tools/kernel_ab against the kernel
+// without them).
 
 constexpr int kDkvBN = 128;       // keys of a work item, 64 a warpgroup
 constexpr int kDkvBQ = 64;        // q rows of a streamed tile
@@ -679,11 +690,17 @@ constexpr int kDkvThreads = 256;  // 2 consumer warpgroups
 template <int D>
 struct DkvTiles {
   static constexpr int BN = kDkvBN, BQ = kDkvBQ;
-  // stages of Q and dO: 4 at d = 64 (64 KB), 2 at d = 128 (64 KB); with the
-  // two K/V buffers (64 KB, 128 KB) and the per-row floats within 227 KB
+  // 64-column halves of a tile: its layout is 64 * kHalves columns wide,
+  // wider than the D columns of work at d = 80, and a buffer's bytes,
+  // which the mbarriers expect, are what TMA delivers, zero-filled columns
+  // included (as `FwdTiles`)
+  static constexpr int kHalves = (D + 63) / 64;
+  // stages of Q and dO: 4 at d = 64 (64 KB), 2 at d = 80 and 128 (64 KB);
+  // with the two K/V buffers (64 KB, 128 KB) and the per-row floats within
+  // 227 KB (3 stages at d = 80 and 128 would need 232,784 bytes)
   static constexpr int kStages = D == 64 ? 4 : 2;
-  static constexpr int kKvBytes = BN * D * 2;    // one K or V buffer
-  static constexpr int kTileBytes = BQ * D * 2;  // one Q or dO tile
+  static constexpr int kKvBytes = BN * kHalves * 128;    // one K or V buffer
+  static constexpr int kTileBytes = BQ * kHalves * 128;  // one Q or dO tile
   // a stage's per-row values: lse and D interleaved ({lse 2i, lse 2i + 1,
   // D 2i, D 2i + 1} for rows 2i, 2i + 1: one 16-byte read a column pair),
   // then the dropout row keys
@@ -741,8 +758,9 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
                         float scale_log2, uint32_t thr, float inv_keep) {
   using T = DkvTiles<D>;
   constexpr int BN = T::BN, BQ = T::BQ, NS = T::kStages;
-  // d = 128: the warpgroups take turns to issue their products (below)
-  constexpr bool kTurns = D == 128;
+  // d = 128, and d = 80 with dropout: the warpgroups take turns to issue
+  // their products (below)
+  constexpr bool kTurns = D == 128 || (D == 80 && DROP);
   extern __shared__ __align__(1024) unsigned char smem_hopper[];
   unsigned char* sKV = align1024(smem_hopper);  // buffer b: K, then V
   unsigned char* sQ = sKV + 4 * T::kKvBytes;     // stage s: Q, then dO
@@ -832,7 +850,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
         const int b = f_ii & 1;
         mbar_arrive_expect_tx(kv_full(b), 2 * T::kKvBytes);
 #pragma unroll
-        for (int h = 0; h < D / 64; ++h) {
+        for (int h = 0; h < T::kHalves; ++h) {
           tma_load_3d(kv_buf(b) + h * BN * 128, &tk, kv_full(b), h * 64,
                       f_w.k0, f_w.bh);
           tma_load_3d(kv_buf(b) + T::kKvBytes + h * BN * 128, &tv,
@@ -841,7 +859,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
       }
       mbar_arrive_expect_tx(full(s), 2 * T::kTileBytes);
 #pragma unroll
-      for (int h = 0; h < D / 64; ++h) {
+      for (int h = 0; h < T::kHalves; ++h) {
         tma_load_3d(q_tile(s) + h * BQ * 128, &tq, full(s), h * 64, q0,
                     f_w.bh);
         tma_load_3d(q_tile(s) + T::kTileBytes + h * BQ * 128, &tdo, full(s),
@@ -874,7 +892,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   const int g = lane >> 2, t = lane & 3;
   const int dpos = bl.k_off - bl.q_off;
   int ii = 0, tj = 0;
-  // the turns (d = 128): warpgroup wg issues its products after `bar.sync
+  // the turns (kTurns): warpgroup wg issues its products after `bar.sync
   // 1 + wg` and hands the turn over by `bar.arrive 2 - wg`; warpgroup 0
   // goes first, and each takes two turns a q tile (S^T and dP^T, then dV
   // and dK), computing or not, so the turns stay paired
@@ -936,7 +954,8 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
       }
       if (j >= my_first) {
         const uint32_t qt = q_tile(st), dot = qt + T::kTileBytes;
-        // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries each
+        // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries each, D / 16
+        // k-steps (the fifth of d = 80 at the start of the second half)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
@@ -1005,7 +1024,8 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
         }
 
         // dV += P~^T dO and dK += dS^T Q: BQ / 16 k-steps of 16 queries,
-        // dO and Q MN-major (transposed)
+        // dO and Q MN-major (transposed), their columns from 64 on in the
+        // next half (LBO)
         if (kTurns) named_bar_sync(1 + wg, kDkvThreads);
         wgmma_fence();
 #pragma unroll
@@ -1467,11 +1487,11 @@ cudaError_t launch_dkv_wgmma(const Args& a) {
 
 // The kernel that `route` names (the Python wrapper's `flash_route`; it is
 // never chosen here), for dQ (which = 0) or dK/dV (which = 1): 2 = wgmma
-// (bf16, d = 64 or 128, Sq and Sk >= 128; in a ring, a group a whole
-// number of the kernel's 128-row tiles: q rows for dQ, K/V rows for
-// dK/dV), 1 = mma.sync (bf16, d % 8 == 0, d <= 128), 0 = plain FMA (f32,
-// or bf16 heads the others do not take, d <= 512).  A route the shape does
-// not fit is refused.
+// (bf16, d = 64 or 128, and 80 for dK/dV, Sq and Sk >= 128; in a ring, a
+// group a whole number of the kernel's 128-row tiles: q rows for dQ, K/V
+// rows for dK/dV), 1 = mma.sync (bf16, d % 8 == 0, d <= 128), 0 = plain
+// FMA (f32, or bf16 heads the others do not take, d <= 512).  A route the
+// shape does not fit is refused.
 cudaError_t dispatch(int which, int route, int is_bf16, const Args& a) {
   if (a.B <= 0 || a.H <= 0 || a.d <= 0 || !valid_blocks(a.bl, kTile))
     return cudaErrorInvalidValue;
@@ -1484,6 +1504,9 @@ cudaError_t dispatch(int which, int route, int is_bf16, const Args& a) {
     } else if (a.d == 64) {
       return a.seed ? launch_dkv_wgmma<64, true>(a)
                     : launch_dkv_wgmma<64, false>(a);
+    } else if (a.d == 80) {
+      return a.seed ? launch_dkv_wgmma<80, true>(a)
+                    : launch_dkv_wgmma<80, false>(a);
     } else if (a.d == 128) {
       return a.seed ? launch_dkv_wgmma<128, true>(a)
                     : launch_dkv_wgmma<128, false>(a);

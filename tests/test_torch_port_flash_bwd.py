@@ -74,7 +74,7 @@ def _port_grads(q, k, v, do, mask, causal, keep=1.0, seed=None):
     return [o.numpy()] + [g.numpy() for g in grads]
 
 
-@pytest.mark.parametrize("S,D", [(256, 64), (200, 40)])
+@pytest.mark.parametrize("S,D", [(256, 64), (200, 40), (256, 80)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("mask_kind", [None, "bert"])
 def test_flash_bwd_matches_pallas(S, D, causal, mask_kind):
