@@ -12,27 +12,25 @@ Phases, each fatal on failure (exit 1, no result lines):
    the MoE row gather), all started together, then Triton's compiler for
    the softmax-CE forward and backward.  The ptxas report names each
    kernel's registers and spill stores (the wgmma kernels, and any that
-   spills); the d = 80 wgmma forward and dK/dV must spill nothing.
+   spills); the d = 80 wgmma forward, dQ and dK/dV must spill nothing.
 2. Kernels against their plain PyTorch versions on the card, on the same
    inputs: the dropout keep bits bitwise, of the helper and inside the
-   wgmma forward, dQ and dK/dV kernels (d = 64 and 128), and at GPT-3
-   2.7B's d = 80 inside the wgmma forward and dK/dV and the mma.sync dQ;
+   wgmma forward, dQ and dK/dV kernels (d = 64, 128 and GPT-3 2.7B's 80);
    two launches of each wgmma and mma.sync kernel give the same bits (at
    BERT's, Llama's, ragged, the d = 128 block and GPT's shapes, d = 80
    ragged, causal and under the key mask, the empty, diagonal and full
    blocks' dK/dV, the full one also against its plain version, and the
-   d = 80 blockwise forward and dK/dV at every step of a 4-rank ring of
-   [1,32,2048,80] blocks, also against their plain versions, unseen K/V
-   rows dk = dv = 0 bitwise); the flash forward (with and without
-   dropout), dQ, dK/dV
+   d = 80 blockwise forward, dQ and dK/dV at every step of a 4-rank ring
+   of [1,32,2048,80] blocks, also against their plain versions, q rows
+   with no live key dq = 0 and unseen K/V rows dk = dv = 0 bitwise); the
+   flash forward (with and without dropout), dQ, dK/dV
    and the CE forward and backward at the main paths' shapes (the wgmma
-   route for bf16 heads of 64 and 128, and 80 for the forward and dK/dV)
+   route for bf16 heads of 64, 80 and 128)
    and at ragged, causal, fully-masked, d = 80 (ragged causal, key mask),
    d = 96 (the mma.sync route), wide-head and f32 ones;
-   at GPT's causal shapes, GPT-small's [8,12,1024,64] at keep 0.9 (wgmma)
-   and GPT-3 2.7B's [2,32,2048,80] at keep 0.9 and 1 (the forward and
-   dK/dV on wgmma, dQ on mma.sync), each on its route, dQ, dK and dV
-   within the spread of their bf16 terms; the
+   at GPT's causal shapes, GPT-small's [8,12,1024,64] at keep 0.9 and
+   GPT-3 2.7B's [2,32,2048,80] at keep 0.9 and 1 (all on wgmma), each on
+   its route, dQ, dK and dV within the spread of their bf16 terms; the
    CE at GPT's V = 50257, [8192,50257] and
    [4096,50257] bf16, with out-of-range labels (loss = lse there);
    ``pack_write`` at the W&D shapes (uniform, Zipf-skewed at M = 3328 and
@@ -47,9 +45,11 @@ Phases, each fatal on failure (exit 1, no result lines):
    out-of-range indices, and one backward through ``RowGatherFn``; the
    blockwise (ring) forward, dQ and dK/dV at the full, diagonal, empty,
    partial and misaligned offsets, with a K/V block twice q's length, and
-   every step of a 4-rank ring at the cp path's shape and of one with
-   64-row groups (the mma.sync route), f32 and bf16, d 64, 80 and 128 (empty
-   rows lse = -1e30 and o = 0, unseen K/V rows dk = dv = 0, bitwise); and ``ring_attention`` over a 4-position mesh against the
+   every step of a 4-rank ring at the cp path's shape and of ones with
+   64-row groups (the mma.sync route at d = 64 and 80; at d = 80 the
+   smoke's only launch of flash_bwd_dq_mma<80>), f32 and bf16, d 64, 80
+   and 128 (empty rows lse = -1e30 and o = 0, unseen K/V rows dk = dv =
+   0, bitwise); and ``ring_attention`` over a 4-position mesh against the
    single-device flash kernel on the global sequence, output and three
    gradients.  Each check prints its max |error| beside its stated
    tolerance.
@@ -174,8 +174,8 @@ Phases, each fatal on failure (exit 1, no result lines):
       ms/step, peak memory; phase f.  i2: GPT-3 2.7B's published widths
       (hidden 2560, 32 heads of d = 80, FFN 10240, V = 50257) at
       bench_gpt_layer's B=2 S=2048, 8 of its 32 layers: 2 warm-up and 3
-      timed steps, per step 8 forward and 8 dK/dV launches on the wgmma
-      kernels and 8 dQ launches on the mma.sync one, 1/1 CE; phase f at
+      timed steps, per step 8 forward, 8 dQ and 8 dK/dV launches on the
+      wgmma kernels and none on mma.sync, 1/1 CE; phase f at
       the witness's counts (3 steps, ``run_steps(5)``).
    Each path's step is broken down by kernel class under torch.profiler.
    Then each kernel is timed at the paths' shapes beside its bound, its
@@ -205,7 +205,7 @@ Phases, each fatal on failure (exit 1, no result lines):
    scaled_dot_product_attention (the yardstick) and its backward; the
    wgmma forward, dQ and dK/dV at the mesh-less Llama's causal
    [8,12,1024,64], and at keep 0.9 (GPT-small's); at GPT-3 2.7B's causal
-   [2,32,2048,80] the wgmma forward and dK/dV and the mma.sync dQ, at keep
+   [2,32,2048,80] the wgmma forward, dQ and dK/dV, at keep
    1 and 0.9, beside the causal scaled_dot_product_attention and its
    backward; BERT's dQ and
    dK/dV at keep 1 beside keep 0.9; the CE forward and backward at
@@ -480,7 +480,9 @@ def ptxas_report(text):
 D80_SPILL_FREE = {
     "flash_attention_fwd.cu": (("flash_fwd_wgmma<80>",
                                 "flash_fwd_wgmmaILi80E"),),
-    "flash_attention_bwd.cu": (("flash_bwd_dkv_wgmma<80, false>",
+    "flash_attention_bwd.cu": (("flash_bwd_dq_wgmma<80>",
+                                "flash_bwd_dq_wgmmaILi80E"),
+                               ("flash_bwd_dkv_wgmma<80, false>",
                                 "flash_bwd_dkv_wgmmaILi80ELb0E"),
                                ("flash_bwd_dkv_wgmma<80, true>",
                                 "flash_bwd_dkv_wgmmaILi80ELb1E"))}
@@ -504,8 +506,9 @@ def build_kernels(build, ce):
             if "wgmma" in name or spill:
                 log(f"  {source}: {name}: {regs} registers, {spill} bytes "
                     "spill stores")
-        # the d = 80 forward's 40-register O fits beside its scores, and
-        # dK/dV's two 40-register accumulators beside S^T and dP^T
+        # the d = 80 forward's 40-register O fits beside its scores, dQ's
+        # beside S, dP and the dS fragments, and dK/dV's two 40-register
+        # accumulators beside S^T and dP^T
         for demangled, mangled in D80_SPILL_FREE.get(source, ()):
             d80 = [b for n, _, b in report if demangled in n or mangled in n]
             require(f"ptxas: {demangled} built with 0 bytes of spill stores "
@@ -564,8 +567,7 @@ WGMMA_ERR = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
 
 def kernel_dropout_checks(rng, fa):
     """Phase 2a': the keep bits inside the wgmma forward, dQ and dK/dV
-    kernels (d = 64 and 128) and, at GPT-3 2.7B's d = 80, inside the
-    wgmma forward and dK/dV and the mma.sync dQ, bitwise.  With q = 0
+    kernels at d = 64, 128 and GPT-3 2.7B's 80, bitwise.  With q = 0
     every key of a row has p = 1/S; with V (and K for dQ) holding the
     identity on keys [p d, (p + 1) d) and zeros elsewhere, o[i, c] =
     keep(i, p d + c) / (keep S), and with dO = 1 and D = 0, dQ[i, c] =
@@ -578,7 +580,7 @@ def kernel_dropout_checks(rng, fa):
     B, H, keep = 2, 3, 0.9
     bf = torch.bfloat16
     for D, S, routes in ((64, 256, WGMMA), (128, 256, WGMMA),
-                         (80, 320, D80)):
+                         (80, 320, WGMMA)):
         assert all(fa.flash_route(kern, bf, D, S, S) == routes[kern]
                    for kern in ("fwd", "dq", "dkv"))
         seed = seed_tensor(rng)
@@ -617,17 +619,15 @@ def kernel_dropout_checks(rng, fa):
 
 
 # the route of each flash kernel at a shape (flash_attention.flash_route):
-# all three on wgmma at bf16 d = 64 and 128; at d = 80 the forward and
-# dK/dV on wgmma, dQ on mma.sync; f32 on plain FMA
+# all three on wgmma at bf16 d = 64, 80 and 128; f32 on plain FMA
 WGMMA = dict(fwd="wgmma", dq="wgmma", dkv="wgmma")
-D80 = dict(fwd="wgmma", dq="mma", dkv="wgmma")
 SIMT = dict(fwd="simt", dq="simt", dkv="simt")
-# GPT's attention (path i): GPT-small's causal heads with dropout on the
-# wgmma kernels; GPT-3 2.7B's d = 80 heads (bench_gpt_layer's [2,32,2048,80],
-# bench.py:198), with and without dropout, on D80's routes
+# GPT's attention (path i): GPT-small's causal heads with dropout and GPT-3
+# 2.7B's d = 80 heads (bench_gpt_layer's [2,32,2048,80], bench.py:198),
+# with and without dropout, all on the wgmma kernels
 GPT_FLASH = (((8, 12, 1024, 64), 0.9, WGMMA),
-             ((2, 32, 2048, 80), 0.9, D80),
-             ((2, 32, 2048, 80), 1.0, D80))
+             ((2, 32, 2048, 80), 0.9, WGMMA),
+             ((2, 32, 2048, 80), 1.0, WGMMA))
 
 
 def flash_repeat_checks(rng, fa, rng80):
@@ -637,8 +637,8 @@ def flash_repeat_checks(rng, fa, rng80):
     d = 80 (ragged causal, and the key mask at keep 0.9; inputs from
     ``rng80``) and GPT's (``GPT_FLASH``) shapes, then the blockwise dK/dV
     at the witness's empty, diagonal and full blocks, the full one also
-    against its plain version, and the d = 80 blockwise forward and dK/dV
-    (``d80_ring_checks``)."""
+    against its plain version, and the d = 80 blockwise forward, dQ and
+    dK/dV (``d80_ring_checks``)."""
     bf = torch.bfloat16
     for gen, (B, H, S, D), causal, masked, keep in (
             (rng, (64, 12, 512, 64), False, True, 0.9),
@@ -704,20 +704,28 @@ def flash_repeat_checks(rng, fa, rng80):
 
 
 def d80_ring_checks(rng, fa):
-    """The d = 80 blockwise forward and dK/dV on the wgmma kernels at every
-    step of a 4-rank ring of [1,32,2048,80] blocks (q, K/V
+    """The d = 80 blockwise forward, dQ and dK/dV on the wgmma kernels at
+    every step of a 4-rank ring of [1,32,2048,80] blocks (q, K/V
     [1,32,8192,80]): step 0 runs the diagonal blocks, steps 1-3 full ones
     (rank g >= r) and empty ones (g < r).  Two launches give the same
-    bits; o and lse (live rows) agree with the plain version, dk and dv
-    (from the step's own o and lse and a random cotangent) within the
-    spread of their bf16 terms; rows with no live key get lse = -1e30 and
-    o = 0, K/V rows that no query sees dk = dv = 0, bitwise."""
+    bits; o and lse (live rows) agree with the plain version, dq, dk and
+    dv (from the step's own o and lse and a random cotangent) within the
+    spread of their bf16 terms; rows with no live key get lse = -1e30, o =
+    0 and dq = 0, K/V rows that no query sees dk = dv = 0, bitwise.  Logs
+    the seconds the dQ checks took."""
     bf = torch.bfloat16
     B, H, G, D, n = 1, 32, 2048, 80, 4
-    assert all(fa.flash_route(kern, bf, D, n * G, n * G, n) == "wgmma"
-               for kern in ("fwd", "dkv"))
+    routes = {kern: fa.flash_route(kern, bf, D, n * G, n * G, n)
+              for kern in ("fwd", "dq", "dkv")}
+    require(f"block ring [{B},{H},{G},{D}] x {n}: the wgmma forward, dQ and "
+            f"dK/dV ({routes})", routes == WGMMA)
     q, k, v = (randn(rng, (B, H, n * G, D), bf) for _ in range(3))
     do = randn(rng, (B, H, n * G, D), bf)
+    atol, _, rtol = BWD_TOL[bf]
+    why = ("both sides round dS and P~ to bf16 before their products; a "
+           "term whose f32 value the two compute in another order may round "
+           "one ulp apart, and short causal rows make terms of ~1")
+    dq_s = 0.0
     for r in range(n):
         name = f"wgmma block ring [{B},{H},{G},{D}] x {n} step {r}"
         runs = [fa.flash_attention_block(q, k, v, 0, 0, ring=(n, r))
@@ -747,26 +755,39 @@ def d80_ring_checks(rng, fa):
         require(f"{name} dK/dV: two launches give the same bits (dk, dv: "
                 f"{same})", all(same))
         dk, dv = runs[0]
-        _, dk_p, dv_p = fa.flash_attention_block_bwd_plain(
+        t0 = time.perf_counter()
+        dqs = [fa.flash_attention_block_bwd_dq(q, k, v, do, lse, dsum, 0, 0,
+                                               ring=(n, r))
+               for _ in range(2)]
+        torch.cuda.synchronize()
+        require(f"{name} dQ: two launches give the same bits",
+                torch.equal(*dqs))
+        dq_s += time.perf_counter() - t0
+        dq_p, dk_p, dv_p = fa.flash_attention_block_bwd_plain(
             q, k, v, do, lse_p, dsum, 0, 0, ring=(n, r))
-        _, sp_k, sp_v = bwd_spread(q, k, v, do, lse_p, dsum, 0, 0, (n, r))
-        atol, _, rtol = BWD_TOL[bf]
+        sp_q, sp_k, sp_v = bwd_spread(q, k, v, do, lse_p, dsum, 0, 0, (n, r))
+        t0 = time.perf_counter()
+        err = check_spread(f"{name} dq", dqs[0], dq_p, atol, rtol, sp_q, why)
+        WGMMA_ERR["dq"] = max(WGMMA_ERR["dq"], err)
+        dead = ~live[0, 0]  # q rows with no live key, in every head
+        require(f"{name}: q rows with no live key get dq = 0 bitwise "
+                f"({int(dead.sum())} rows)",
+                bool((dqs[0][:, :, dead] == 0).all()))
+        dq_s += time.perf_counter() - t0
         for g, got, want, sp in (("dk", dk, dk_p, sp_k),
                                  ("dv", dv, dv_p, sp_v)):
-            err = check_spread(
-                f"{name} {g}", got, want, atol, rtol, sp,
-                "both sides round dS and P~ to bf16 before their products; "
-                "a term whose f32 value the two compute in another order "
-                "may round one ulp apart, and short causal rows make terms "
-                "of ~1")
+            err = check_spread(f"{name} {g}", got, want, atol, rtol, sp, why)
             WGMMA_ERR["dkv"] = max(WGMMA_ERR["dkv"], err)
         dead = dead_kv_rows(G * n, G * n, 0, 0, (n, r))
         require(f"{name}: K/V rows no query sees get dk = dv = 0 bitwise "
                 f"({int(dead.sum())} rows)",
                 bool((dk[:, :, dead] == 0).all())
                 and bool((dv[:, :, dead] == 0).all()))
-        del (runs, o, lse, o_p, lse_p, live, dsum, dk, dv, dk_p, dv_p, sp_k,
-             sp_v)
+        del (runs, o, lse, o_p, lse_p, live, dsum, dk, dv, dqs, dq_p, dk_p,
+             dv_p, sp_q, sp_k, sp_v)
+    log(f"block ring [{B},{H},{G},{D}] x {n}: the dQ checks took {dq_s:.1f} s "
+        "(launches, bits, spread, dead rows; the plain backward and the "
+        "spreads are shared with dK/dV)")
     del q, k, v, do
     torch.cuda.empty_cache()
 
@@ -930,8 +951,9 @@ def flash_bwd_checks(rng, fa, rng80):
              mask=bert_mask(rng, 2, 200, "cuda"), keep=0.9)
         case("[2,3,1000,64] padded causal", 2, 3, 1000, 64, dtype,
              causal=True)
-        # GPT-3 2.7B's head on the wgmma dK/dV kernel (64-column halves,
-        # the second filled in part): ragged causal, and the key mask
+        # GPT-3 2.7B's head on the wgmma dQ and dK/dV kernels (64-column
+        # halves, the second filled in part): ragged causal, and the key
+        # mask
         case("[2,3,1000,80] padded causal", 2, 3, 1000, 80, dtype,
              causal=True, gen=rng80)
         case("[2,4,512,80] bert-mask keep 0.9", 2, 4, 512, 80, dtype,
@@ -1007,8 +1029,11 @@ def block_checks(rng, fa, rng80):
     """Phase 2c': the blockwise (ring) forward, dQ and dK/dV kernels
     against their plain versions: one block pair at the full, diagonal,
     empty and partial offsets, a K/V block twice q's length, and every
-    step of a 4-rank ring at the main path's shape.  The backward takes
-    the forward's own (o, lse) and a random cotangent.  Empty rows must
+    step of a 4-rank ring at the main path's shape and of 4-rank rings of
+    64-row groups at d = 64 and 80 (the mma.sync kernels; at d = 80 the
+    smoke's only launch of flash_bwd_dq_mma<80>, its seconds logged).
+    The backward takes the forward's own (o, lse) and a random
+    cotangent.  Empty rows must
     give lse = -1e30 and o = 0, and K/V rows that no query sees dk = dv =
     0, bitwise.  The d = 80 cases draw from ``rng80``.  Returns the
     largest errors of the bf16 ring cases (the main path's)."""
@@ -1085,7 +1110,7 @@ def block_checks(rng, fa, rng80):
             # rows 0-31 have no live key in the first kv tile they run
             case(f"[2,4,256,{D}] misaligned (0,32)", (2, 4, 256, D), 256, 0,
                  32, dtype)
-    errs = []
+    errs, mma80_s = [], 0.0
     for r in range(4):
         # the main path's ring steps: [8,12,1024,64] over 4 ranks
         errs.append(case(f"ring [8,12,1024,64] cp=4 step {r}",
@@ -1097,6 +1122,21 @@ def block_checks(rng, fa, rng80):
         # straddle: the mma.sync kernels
         case(f"ring [2,4,256,64] cp=4 step {r}", (2, 4, 256, 64), 256, 0, 0,
              torch.bfloat16, ring=(4, r))
+        # d = 80 64-row ring groups: the mma.sync dQ's only launch in the
+        # smoke
+        t0 = time.perf_counter()
+        before = fa.route_launches["dq", "mma"]
+        case(f"ring [2,4,256,80] cp=4 step {r}", (2, 4, 256, 80), 256, 0, 0,
+             torch.bfloat16, ring=(4, r))
+        route = fa.flash_route("dq", torch.bfloat16, 80, 256, 256, 4)
+        require(f"ring [2,4,256,80] cp=4 step {r}: dQ on the mma.sync "
+                f"route, flash_bwd_dq_mma<80> ({route}, "
+                f"{fa.route_launches['dq', 'mma'] - before} launch)",
+                route == "mma"
+                and fa.route_launches["dq", "mma"] == before + 1)
+        mma80_s += time.perf_counter() - t0
+    log(f"ring [2,4,256,80] cp=4, 64-row groups on mma.sync: {mma80_s:.1f} "
+        "s for its 4 steps' checks")
     return {"fwd": max(e[0] for e in errs), "dq": max(e[1] for e in errs),
             "dkv": max(max(e[2:]) for e in errs)}
 
@@ -3770,7 +3810,8 @@ GPT_SMALL = dict(preset="gpt-small", L=12, B=8, S=1024, V=50257,
 # B=2 S=2048 (bench.py:198); 8 of its 32 layers: the whole model's f32
 # masters, gradients, Adam moments, update temporaries and bf16 copy take
 # ~34 bytes a param, ~90 GB for 2.65 B params, more than the card holds
-GPT_27B = dict(preset="gpt-2.7b", L=8, B=2, S=2048, V=50257, routes=D80)
+GPT_27B = dict(preset="gpt-2.7b", L=8, B=2, S=2048, V=50257,
+               routes=WGMMA)
 
 
 def gpt_attention_shape(models, c):
@@ -3801,9 +3842,8 @@ def gpt_paths(ht, models, fns, rng, steps, seed, captures):
     AdamW(1e-4, wd 0.01).minimize(loss)]}, compute_dtype=bfloat16)`` over
     f32 masters, dropout 0.1 (hidden and attention, in the flash kernels),
     Zipf ids with the ids rolled by one as labels: GPT-small at
-    bench_gpt_e2e's full size (the wgmma flash kernels) and GPT-3 2.7B's
-    widths, depth cut (d = 80: the wgmma forward and dK/dV, the mma.sync
-    dQ); each with
+    bench_gpt_e2e's full size and GPT-3 2.7B's widths, depth cut (d =
+    80), both on the wgmma flash kernels; each with
     phase 3f's captured-against-eager checks (appended to ``captures``).
     Returns {label: (ms/step, launches)}."""
     out = {}
@@ -4072,9 +4112,8 @@ def main():
     c = LLAMA
     times.update(causal_flash_times(rng, fa, c["B"], c["heads"], c["S"],
                                     c["H"] // c["heads"], 1.0, WGMMA))
-    # GPT's attention: GPT-small's heads with dropout on the wgmma kernels,
-    # GPT-3 2.7B's d = 80 on the wgmma forward and dK/dV and the mma.sync
-    # dQ; GPT's LM-head CE
+    # GPT's attention: GPT-small's heads with dropout and GPT-3 2.7B's
+    # d = 80, on the wgmma kernels; GPT's LM-head CE
     gpt_times = [causal_flash_times(rng, fa, b, h, s, d, keep, routes)
                  for (b, h, s, d), keep, routes in GPT_FLASH]
     ce_times(rng, ce, GPT_SMALL["B"] * GPT_SMALL["S"], GPT_SMALL["V"])
@@ -4125,8 +4164,8 @@ def main():
     # for pack_write, bench_moe for row_gather, the cp=4 Llama for the block
     # kernels, the mesh-less Llama for the wgmma kernels, which the BERT and
     # cp=4 paths run too), with path i's GPT-small and GPT-3 2.7B-width
-    # steps added to the flash and CE kernels' and to the wgmma kernels'
-    # (GPT-small's three, the 2.7B widths' forward and dK/dV); row_gather's
+    # steps added to the flash and CE kernels' and to the three wgmma
+    # kernels'; row_gather's
     # times are the sums over one bench_moe step's three launches; the block
     # kernels' times are the full block's at the witness's block shape, the
     # wgmma kernels' at the mesh-less Llama's causal shape
@@ -4166,9 +4205,8 @@ def main():
     # path i's flash kernels at its own shapes and routes, beside the
     # kernels line, whose flash_attention_* entries sum launches over both
     # routes and carry BERT's wgmma times: launches are those of the path
-    # that runs the shape (i1 the wgmma kernels, i2 the wgmma forward and
-    # dK/dV and the mma.sync dQ) at its attention dropout, keep 0.9; none
-    # at keep 1
+    # that runs the shape (i1 and i2, each on the wgmma kernels) at its
+    # attention dropout, keep 0.9; none at keep 1
     gpt_paths_by_shape = {gpt_attention_shape(models, GPT_SMALL):
                           "gpt-small path",
                           gpt_attention_shape(models, GPT_27B):

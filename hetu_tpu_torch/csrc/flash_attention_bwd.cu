@@ -41,7 +41,7 @@
 // tensors each reads and writes (3.35 TB/s), so both are bound by the
 // operations.  The kernel of a launch is the route the Python wrapper
 // names from dtype and shape (`flash_route`) and passes in:
-// - wgmma (bf16, d = 64 or 128): `flash_bwd_dq_wgmma`, built for Hopper
+// - wgmma (bf16, d = 64, 80 or 128): `flash_bwd_dq_wgmma`, built for Hopper
 //   as flash_attention_fwd.cu's `flash_fwd_wgmma` (flash_hopper.cuh): a
 //   persistent block per SM, a producer warp feeding each 128-row item's
 //   Q and dO once and its K/V tiles of 64 keys by TMA into 3 stages on
@@ -53,8 +53,8 @@
 //   the same pieces turned around: an item of 128 keys whose K/V stay in
 //   shared memory, the q tiles streamed past them, two 64 x d accumulators
 //   a warpgroup in an 8-warp block of 255 registers a thread (its header
-//   below), which also takes GPT-3 2.7B's heads of 80 in the forward's
-//   layout of 64-column halves.
+//   below).  Both take GPT-3 2.7B's heads of 80 in the forward's layout
+//   of 64-column halves.
 // - mma (bf16 with d % 8 == 0 and d <= 128 that wgmma does not take):
 //   mma.sync.m16n8k16, 4 warps of 16 rows each, 64x64 score tiles in
 //   registers, the Q/dO/K/V tiles in shared memory.
@@ -374,25 +374,42 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // -------------------------------------------------------------------------
-// Hopper dQ kernel for bf16 heads of d = 64 and 128, persistent as
-// flash_fwd_wgmma: 2 consumer warpgroups of 64 query rows (a 128-row q
-// tile) and 1 producer warp.  For each work item the producer loads Q and
-// dO by TMA into one of two buffers, then the K/V tiles of 64 keys through
-// a ring of stages with their key masks.  Each consumer warpgroup runs S =
-// Q K^T and dP = dO V^T on wgmma from shared memory, forms dS = P *
-// (dropout(dP) - D) in registers as flash_bwd_dq_mma does, and accumulates
-// dQ += dS K on wgmma with dS from registers and K through the
-// descriptor's transpose bit.  Each dQ row is one warpgroup's: no atomics,
-// the same bits on every launch.
+// Hopper dQ kernel for bf16 heads of d = 64, 80 and 128 (`_bwd_dq_kernel`,
+// flash_attention.py:284-335), persistent as flash_fwd_wgmma: 2 consumer
+// warpgroups of 64 query rows (a 128-row q tile) and 1 producer warp.  For
+// each work item the producer loads Q and dO by TMA into one of two
+// buffers, then the K/V tiles of 64 keys through a ring of stages with
+// their key masks.  Each consumer warpgroup runs S = Q K^T and dP = dO V^T
+// on wgmma from shared memory, forms dS = P * (dropout(dP) - D) in
+// registers, and accumulates dQ += dS K on wgmma with dS from registers
+// and K through the descriptor's transpose bit.  Each dQ row is one
+// warpgroup's: no atomics, the same bits on every launch.
+//
+// d = 80 (GPT-3 2.7B's heads) takes the forward's layout (`FwdTiles`): a
+// Q, dO, K or V tile is two 64-column halves, the second filled by TMA in
+// columns 64-79 and zeros past them, so a buffer holds, and its mbarrier
+// expects, two full boxes.  S and dP run 5 k-steps of 16 (the fifth at the
+// start of the second half), and dQ += dS K one m64n80k16 a 16-key step
+// (`wgmma_rs_n80`), K read across both halves through the descriptor's
+// LBO: no product reads a zero-filled column.  Its 40 accumulator
+// registers sit between d = 64's 32 and d = 128's 64, beside the two
+// score tiles and the dS fragments.  The work width, 80, is used where dq
+// rows are stored or zero-filled.  Other bf16 heads up to 128, and ring
+// groups that are not whole 128-row q tiles, take `flash_bwd_dq_mma`.
 
 template <int D>
 struct DqTiles {
   static constexpr int BN = 64;  // keys of a kv tile
   static constexpr int kStages = 3;
-  static constexpr int kQBytes = kHopperBM * D * 2;  // Q or dO of a buffer
-  static constexpr int kTileBytes = BN * D * 2;      // one K or V tile
+  // 64-column halves of a tile: its layout is 64 * kHalves columns wide,
+  // wider than the D columns of work at d = 80, and a buffer's bytes,
+  // which the mbarriers expect, are what TMA delivers, zero-filled columns
+  // included (as `FwdTiles`)
+  static constexpr int kHalves = (D + 63) / 64;
+  static constexpr int kQBytes = kHopperBM * kHalves * 128;  // Q or dO
+  static constexpr int kTileBytes = BN * kHalves * 128;  // one K or V tile
   // 2 buffers of Q and dO, 3 stages of K and V: 112 KB at d = 64, 224 KB
-  // at d = 128
+  // at d = 80 and 128 (231,248 bytes with the masks and barriers)
   static constexpr size_t kSmem = 1024 + 4 * kQBytes +
                                   (size_t)kStages * 2 * kTileBytes +
                                   kStages * BN * sizeof(float) +
@@ -464,7 +481,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
         mbar_wait(q_free(qb), ((qi >> 1) & 1) ^ 1);
         mbar_arrive_expect_tx(q_full(qb), 2 * T::kQBytes);
 #pragma unroll
-        for (int h = 0; h < D / 64; ++h) {
+        for (int h = 0; h < T::kHalves; ++h) {
           tma_load_3d(q_buf(qb) + h * BM * 128, &tq, q_full(qb), h * 64,
                       w.q0, w.bh);
           tma_load_3d(q_buf(qb) + T::kQBytes + h * BM * 128, &tdo,
@@ -486,7 +503,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
         if (lane == 0) {
           mbar_arrive_expect_tx(full(s), 2 * T::kTileBytes);
 #pragma unroll
-          for (int h = 0; h < D / 64; ++h) {
+          for (int h = 0; h < T::kHalves; ++h) {
             tma_load_3d(k_tile(s) + h * BN * 128, &tk, full(s), h * 64, k0,
                         w.bh);
             tma_load_3d(k_tile(s) + T::kTileBytes + h * BN * 128, &tv,
@@ -549,7 +566,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       mbar_wait(full(st), (tj / NS) & 1);
       if (j < my_tiles) {
         const uint32_t kt = k_tile(st), vt = kt + T::kTileBytes;
-        // S = Q K^T and dP = dO V^T: 64 rows x BN keys each
+        // S = Q K^T and dP = dO V^T: 64 rows x BN keys each, D / 16
+        // k-steps (the fifth of d = 80 at the start of the second half)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
@@ -607,7 +625,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
               pack_bf16(s[x] * (dp0 - dsm[r]), s[x + 1] * (dp1 - dsm[r]));
         }
 
-        // dQ += dS K: BN / 16 k-steps of 16 keys, K MN-major (transposed)
+        // dQ += dS K: BN / 16 k-steps of 16 keys, K MN-major (transposed),
+        // its columns from 64 on in the next half (LBO)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
@@ -1487,9 +1506,9 @@ cudaError_t launch_dkv_wgmma(const Args& a) {
 
 // The kernel that `route` names (the Python wrapper's `flash_route`; it is
 // never chosen here), for dQ (which = 0) or dK/dV (which = 1): 2 = wgmma
-// (bf16, d = 64 or 128, and 80 for dK/dV, Sq and Sk >= 128; in a ring, a
-// group a whole number of the kernel's 128-row tiles: q rows for dQ, K/V
-// rows for dK/dV), 1 = mma.sync (bf16, d % 8 == 0, d <= 128), 0 = plain
+// (bf16, d = 64, 80 or 128, Sq and Sk >= 128; in a ring, a group a whole
+// number of the kernel's 128-row tiles: q rows for dQ, K/V rows for
+// dK/dV), 1 = mma.sync (bf16, d % 8 == 0, d <= 128), 0 = plain
 // FMA (f32, or bf16 heads the others do not take, d <= 512).  A route the
 // shape does not fit is refused.
 cudaError_t dispatch(int which, int route, int is_bf16, const Args& a) {
@@ -1500,6 +1519,7 @@ cudaError_t dispatch(int which, int route, int is_bf16, const Args& a) {
       return cudaErrorInvalidValue;
     if (which == 0) {
       if (a.d == 64) return launch_dq_wgmma<64>(a);
+      if (a.d == 80) return launch_dq_wgmma<80>(a);
       if (a.d == 128) return launch_dq_wgmma<128>(a);
     } else if (a.d == 64) {
       return a.seed ? launch_dkv_wgmma<64, true>(a)

@@ -13,11 +13,12 @@ it.  The TPU kernels' 512-row blocks were sized for v5e VMEM; the Hopper
 kernels use tiles that fit shared memory and mask ragged S and d inside
 the kernel instead of padding.  Each launch takes the kernel that
 ``flash_route`` names from its dtype and shape, never another on failure:
-the wgmma kernels for bf16 heads of 64 and 128 (the forward and dQ on
-128-row q tiles with TMA-fed K/V stages, dK/dV on 128-key items with
-TMA-fed Q/dO stages) and the wgmma forward and dK/dV for heads of 80,
-the mma.sync kernels for the other bf16 heads up to 128 (dQ at 80 among
-them), the plain-FMA kernels for f32 and the rest.
+the wgmma kernels for bf16 heads of 64, 80 and 128 (the forward and dQ
+on 128-row q tiles with TMA-fed K/V stages, dK/dV on 128-key items with
+TMA-fed Q/dO stages; a head of 80 in two 64-column halves), the mma.sync
+kernels for the other bf16 heads up to 128 and for the shapes the wgmma
+kernels do not tile (Sq or Sk below 128, ring groups that are not whole
+128-row tiles), the plain-FMA kernels for f32 and the rest.
 ``route_launches`` counts the launches of each (kernel, route).
 
 Dropout: the TPU kernels reseed the TPU PRNG per (seed, tile).  Here an
@@ -124,9 +125,9 @@ def _supported(q, k, v, mask):
 
 _ROUTE_CODE = {"simt": 0, "mma": 1, "wgmma": 2}  # the C entry points' route
 WGMMA_ROWS = 128  # rows of a wgmma item, the least Sq and Sk it takes
-# the heads each wgmma kernel takes: the forward's and dK/dV's 64-column
-# tile halves also hold d = 80 (GPT-3 2.7B's heads), the second half in part
-WGMMA_HEADS = {"fwd": (64, 80, 128), "dq": (64, 128), "dkv": (64, 80, 128)}
+# the heads the three wgmma kernels take: their 64-column tile halves also
+# hold d = 80 (GPT-3 2.7B's heads), the second half in part
+WGMMA_HEADS = (64, 80, 128)
 
 # launches of each kernel ("fwd", "dq", "dkv": the self-attention and the
 # blockwise entry points together) by route, beside the entry points' own
@@ -139,21 +140,21 @@ def flash_route(kernel, dtype, d, sq, sk, n=1):
     takes, a pure function of dtype and shape:
 
     - "wgmma" (Hopper: TMA-fed stages, wgmma products) on bf16 heads of
-      d = 64 or 128, and for the forward and dK/dV also d = 80
-      (``WGMMA_HEADS``),
+      d = 64, 80 or 128 (``WGMMA_HEADS``),
       with Sq, Sk >= 128 and, in a ring of n > 1 groups,
       groups of whole 128-row tiles of the rows the kernel tiles by: the
       q rows (Sq / n) for the forward and dQ, whose items are 128-row q
       tiles, and the K/V rows (Sk / n) for dK/dV, whose items are 128-key
       kv tiles;
     - "mma" (mma.sync m16n8k16) for the other bf16 heads with d % 8 == 0
-      and d <= 128;
+      and d <= 128, and for those three heads where the wgmma rule fails
+      (Sq or Sk < 128, ring groups of 64 or 192 rows);
     - "simt" (plain FMA, f32 accumulation) for f32 and the remaining bf16
       heads (d <= 512).
     """
     if dtype == torch.bfloat16:
         group = sk // n if kernel == "dkv" else sq // n
-        if (d in WGMMA_HEADS[kernel] and min(sq, sk) >= WGMMA_ROWS
+        if (d in WGMMA_HEADS and min(sq, sk) >= WGMMA_ROWS
                 and (n == 1 or group % WGMMA_ROWS == 0)):
             return "wgmma"
         if d % 8 == 0 and d <= 128:

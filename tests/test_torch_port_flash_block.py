@@ -2,8 +2,10 @@
 held against the JAX package's ``flash_attention_block`` and
 ``flash_attention_block_bwd``, whose Pallas kernels run in interpret mode.
 
-B=1, H=2, d=32, f32, at Sq = Sk = 128 and at Sq = 128 with Sk = 256, at
-the full, diagonal, empty and partial offsets.  The backward gets what a
+B=1, H=2, f32, at Sq = Sk = 128 and at Sq = 128 with Sk = 256, at the
+full, diagonal, empty and partial offsets, at d = 32 and at GPT-3 2.7B's
+d = 80 (the head whose blockwise dQ and dK/dV the card's wgmma kernels
+hold to these plain versions).  The backward gets what a
 ring gives it: the (o, lse) of the block combined by logaddexp with the
 q block's own diagonal block, so no row is empty, and a random cotangent.
 Tolerance: atol 1e-5 on o, lse, dq, dk and dv (f32 on both sides; only
@@ -26,8 +28,8 @@ ATOL = 1e-5
 B, H, D = 1, 2, 32
 
 
-def _rand(rng, s):
-    return rng.standard_normal((B, H, s, D)).astype(np.float32)
+def _rand(rng, s, d=D):
+    return rng.standard_normal((B, H, s, d)).astype(np.float32)
 
 
 def _t(a):
@@ -47,12 +49,15 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_block_matches_pallas(case):
+@pytest.mark.parametrize(
+    "case, d", [(c, d) for d in (D, 80) for c in CASES],
+    ids=[c if d == D else f"d80-{c}" for d in (D, 80) for c in CASES])
+def test_block_matches_pallas(case, d):
+    idx = sorted(CASES).index(case)
+    rng = np.random.default_rng(idx if d == D else (80, idx))
     sq, sk, q_off, k_off = CASES[case]
-    rng = np.random.default_rng(sorted(CASES).index(case))
-    q, do, kd, vd = (_rand(rng, sq) for _ in range(4))
-    k, v = _rand(rng, sk), _rand(rng, sk)
+    q, do, kd, vd = (_rand(rng, sq, d) for _ in range(4))
+    k, v = _rand(rng, sk, d), _rand(rng, sk, d)
     o_j, lse_j = jfa.flash_attention_block(q, k, v, jnp.int32(q_off),
                                            jnp.int32(k_off))
     o_t, lse_t = tfa.flash_attention_block(_t(q), _t(k), _t(v), q_off, k_off)

@@ -125,7 +125,8 @@ def _ref_dropout_attention(mask, causal, keep_mat, keep):
 
 
 @pytest.mark.parametrize("S,D,causal,mask_kind", [
-    (256, 64, False, "bert"), (200, 40, True, None), (256, 64, True, "bert")])
+    (256, 64, False, "bert"), (200, 40, True, None), (256, 64, True, "bert"),
+    (256, 80, True, None)])
 def test_flash_dropout_matches_reference_with_replayed_mask(S, D, causal,
                                                             mask_kind):
     B, H, keep = 2, 2, 0.9

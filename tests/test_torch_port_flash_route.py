@@ -6,9 +6,9 @@ TMA-fed stages, wgmma products), "mma" (mma.sync m16n8k16) or "simt"
 (plain FMA).
 Pinned here: the route at every main path's shape; that every shape the
 kernels accepted before keeps its kernel or moves from "mma" to "wgmma"
-exactly where the documented condition holds (for the forward and dK/dV
-at d = 80 too, while dQ at d = 80 stays on mma.sync); and that a CPU
-tensor still takes the plain version, counting no launch of any route.
+exactly where the documented condition holds (at d = 80 too, for the
+forward, dQ and dK/dV alike); and that a CPU tensor still takes the plain
+version, counting no launch of any route.
 """
 
 import itertools
@@ -53,10 +53,10 @@ MAIN_PATHS = [
     ("block dkv", "dkv", BF16, 128, 2048, 2048, 1),
 ]
 # GPT-3 2.7B's widths (path i2), causal [2,32,2048,80] with dropout: the
-# forward and dK/dV on the wgmma kernels, dQ on the mma.sync one
+# forward, dQ and dK/dV on the wgmma kernels
 GPT_27B_PATH = [
     ("gpt-2.7b fwd", "fwd", BF16, 80, 2048, 2048, 1, "wgmma"),
-    ("gpt-2.7b dq", "dq", BF16, 80, 2048, 2048, 1, "mma"),
+    ("gpt-2.7b dq", "dq", BF16, 80, 2048, 2048, 1, "wgmma"),
     ("gpt-2.7b dkv", "dkv", BF16, 80, 2048, 2048, 1, "wgmma"),
 ]
 
@@ -72,12 +72,12 @@ def test_main_path_routes(case):
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_every_accepted_shape_keeps_its_kernel_or_moves_to_wgmma(kernel):
     """Every (dtype, d, S, ring) the wrappers accept: the kernel it took
-    before, or "wgmma" in place of "mma" exactly on bf16 heads of d = 64
-    or 128 (and 80 for the forward and dK/dV) with Sq, Sk >= 128 whose ring
+    before, or "wgmma" in place of "mma" exactly on bf16 heads of d = 64,
+    80 or 128 with Sq, Sk >= 128 whose ring
     groups hold whole 128-row tiles of the kernel's items: q rows for the
     forward and dQ, K/V rows for dK/dV (here Sq = Sk, so the two lengths
     agree)."""
-    heads = (64, 128) if kernel == "dq" else (64, 80, 128)
+    heads = (64, 80, 128)
     ds = [8, 16, 32, 40, 48, 64, 72, 80, 96, 120, 128, 136, 256, 264, 512]
     lengths = [128, 192, 200, 256, 384, 512, 1000, 1024, 2048]
     for dtype, d, s, n in itertools.product((BF16, F32), ds, lengths,
@@ -103,19 +103,27 @@ def test_short_blocks_keep_the_mma_kernel():
 
 
 # (kernel, d, Sq, Sk, ring groups, route) at the edges of the d = 80 and
-# d = 96 gates: the forward and dK/dV at d = 80 take the wgmma kernels
-# under the rule of d = 64 and 128; dQ at d = 80, 64-row ring groups,
-# S < 128 and every launch at d = 96 stay on mma.sync
+# d = 96 gates: the forward, dQ and dK/dV at d = 80 take the wgmma kernels
+# under the rule of d = 64 and 128; 64- and 192-row ring groups, S < 128
+# and every launch at d = 96 stay on mma.sync
 HEAD_EDGES = [
     ("fwd", 80, 2048, 2048, 1, "wgmma"),
     ("fwd", 80, 1000, 1000, 1, "wgmma"),   # ragged S, masked in-kernel
     ("fwd", 80, 128, 128, 1, "wgmma"),     # one 128-row q tile
     ("fwd", 80, 8192, 8192, 4, "wgmma"),   # ring groups of 2048 rows
     ("fwd", 80, 512, 1024, 2, "wgmma"),    # 256-row q groups
-    ("dq", 80, 2048, 2048, 1, "mma"),
+    ("dq", 80, 2048, 2048, 1, "wgmma"),
     ("dkv", 80, 2048, 2048, 1, "wgmma"),
-    ("dq", 80, 8192, 8192, 4, "mma"),
+    ("dq", 80, 8192, 8192, 4, "wgmma"),    # ring groups of 2048 rows
     ("dkv", 80, 8192, 8192, 4, "wgmma"),
+    ("dq", 80, 1000, 1000, 1, "wgmma"),    # ragged S, masked in-kernel
+    ("dq", 80, 128, 128, 1, "wgmma"),      # one 128-row q tile
+    ("dq", 80, 512, 1024, 2, "wgmma"),     # 256-row q groups
+    ("dq", 80, 256, 256, 4, "mma"),        # 64-row ring groups
+    ("dq", 80, 768, 768, 4, "mma"),        # 192-row groups: 1.5 q tiles
+    ("dq", 80, 128, 256, 2, "mma"),        # 64-row q groups
+    ("dq", 80, 127, 127, 1, "mma"),        # S below one q tile
+    ("dq", 80, 128, 64, 1, "mma"),         # Sk below 128
     ("fwd", 80, 256, 256, 4, "mma"),       # 64-row ring groups
     ("fwd", 80, 768, 768, 4, "mma"),       # 192-row groups: 1.5 q tiles
     ("fwd", 80, 128, 256, 2, "mma"),       # 64-row q groups
@@ -177,7 +185,7 @@ def test_forward_and_dq_gate_reads_the_q_groups():
     assert fa.flash_route("fwd", BF16, 64, 128, 256, 2) == "mma"
     assert fa.flash_route("dq", BF16, 64, 128, 256, 2) == "mma"
     assert fa.flash_route("dkv", BF16, 64, 128, 256, 2) == "wgmma"
-    # the same at d = 80, where dQ takes no wgmma kernel at all
+    # the same at d = 80
     assert fa.flash_route("fwd", BF16, 80, 128, 256, 2) == "mma"
     assert fa.flash_route("dq", BF16, 80, 128, 256, 2) == "mma"
     assert fa.flash_route("dkv", BF16, 80, 128, 256, 2) == "wgmma"
